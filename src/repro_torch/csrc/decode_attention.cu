@@ -1,0 +1,305 @@
+// Single-token GQA decode attention over a dense per-row KV cache, for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/decode_attention/kernel.py:67
+// decode_attention_pallas (pallas_call at :106, body _kernel at :29-64).
+// The TPU version walks a sequential grid axis over KV blocks with the
+// online-softmax state in VMEM scratch and skips blocks past kv_len with
+// pl.when.  Blocks on this card run in no order, so the walk over the cache
+// is a loop inside one thread block instead.
+//
+//   q      (B, H, hd)        f32 or bf16
+//   k, v   (B, S, KVH, hd)   same dtype as q
+//   kv_len (B,) int32        positions >= kv_len[b] are masked
+//   out    (B, H, hd)        q's dtype; scores, softmax and sums in f32
+//
+// What bounds it: memory.  A call reads 2 * sum(kv_len) * KVH * hd cache
+// elements and does about 4 * H * hd flops per cached position, i.e. about
+// rep flops per byte read, far below the ~295 flops/byte at which the H100
+// turns compute-bound.  For qwen3-4b (KVH 8, hd 128, bf16) with 8 slots
+// averaging 400 positions that is ~13 MB a layer, ~4 us at 3.35 TB/s.
+//
+// Design: one thread block per (b, kv_head).  Its `rep` query rows stay in
+// registers; the block loops over the cache only up to kv_len[b] (the TPU
+// kernel's block skip comes for free).  G lanes share one cache row, each
+// reading 16 bytes of it; the block's kThreads / G lane groups each run an
+// online softmax over their own interleaved subset of positions, and the
+// groups' (m, l, acc) states are merged once at the end, in group order,
+// through shared memory.  No atomics: the reduction order depends only on
+// kv_len[b], so a row's result does not depend on the rest of the batch.
+//
+// Known limit: the grid is B * KVH blocks (64 at 8 slots of qwen3-4b), which
+// leaves most of the 132 SMs idle; splitting the KV axis across blocks is
+// later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <typename T>
+struct Pack;  // elements of T in one 16-byte load
+template <>
+struct Pack<float> {
+  static constexpr int N = 4;
+};
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int N = 8;
+};
+
+__device__ __forceinline__ void load_pack(const float* p, float (&o)[4]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  o[0] = u.x;
+  o[1] = u.y;
+  o[2] = u.z;
+  o[3] = u.w;
+}
+
+__device__ __forceinline__ void load_pack(const __nv_bfloat16* p,
+                                          float (&o)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// REP is `rep` rounded up to a power of two; rows r >= rep are zero
+// queries whose results are never written.
+template <typename T, int HD, int REP>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const int* __restrict__ kv_len,
+                            T* __restrict__ out, int S, int KVH, int rep) {
+  constexpr int P = Pack<T>::N;        // elements per lane per cache row
+  constexpr int G = HD / P;            // lanes sharing one cache row
+  constexpr int NG = kThreads / G;     // lane groups in the block
+  // keys each group takes per step: fewer for wide REP to stay in registers
+  constexpr int KPS = (REP * P >= 64) ? 2 : 4;
+  constexpr int STEP = NG * KPS;       // positions the block covers per step
+  static_assert(HD % P == 0 && G <= 32 && 32 % G == 0,
+                "a cache row must map onto lanes of one warp");
+
+  __shared__ float sm_m[NG][REP];
+  __shared__ float sm_l[NG][REP];
+  __shared__ float sm_acc[NG][REP][HD];
+
+  const int b = blockIdx.x / KVH;
+  const int g = blockIdx.x % KVH;
+  const int lane = threadIdx.x % G;
+  const int grp = threadIdx.x / G;
+  const int d0 = lane * P;
+  const int H = KVH * rep;
+  const int len = max(0, min(kv_len[b], S));
+  const float sqrt_hd = sqrtf(static_cast<float>(HD));
+
+  float qr[REP][P];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    if (r < rep) {
+      load_pack(q + (static_cast<size_t>(b) * H + g * rep + r) * HD + d0,
+                qr[r]);
+#pragma unroll
+      for (int e = 0; e < P; ++e) qr[r][e] /= sqrt_hd;  // as the reference
+    } else {
+#pragma unroll
+      for (int e = 0; e < P; ++e) qr[r][e] = 0.f;
+    }
+  }
+
+  float m[REP], l[REP], acc[REP][P];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < P; ++e) acc[r][e] = 0.f;
+  }
+
+  const size_t row = static_cast<size_t>(KVH) * HD;  // stride of a position
+  const size_t head0 = (static_cast<size_t>(b) * S * KVH + g) * HD + d0;
+  const T* kp = k + head0;
+  const T* vp = v + head0;
+
+  // `base` is uniform across the block, so every lane reaches the shuffles.
+  for (int base = 0; base < len; base += STEP) {
+    const int j0 = base + grp * KPS;
+    float kf[KPS][P], vf[KPS][P];
+#pragma unroll
+    for (int u = 0; u < KPS; ++u) {
+      const int j = j0 + u;
+      if (j < len) {
+        load_pack(kp + j * row, kf[u]);
+        load_pack(vp + j * row, vf[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < P; ++e) kf[u][e] = vf[u][e] = 0.f;
+      }
+    }
+    float s[KPS][REP];
+#pragma unroll
+    for (int u = 0; u < KPS; ++u) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < P; ++e) dot = fmaf(qr[r][e], kf[u][e], dot);
+        s[u][r] = dot;
+      }
+    }
+    // full dot product: sum the partial dots of the G lanes of the row
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < KPS; ++u) {
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+          s[u][r] += __shfl_xor_sync(0xffffffffu, s[u][r], off);
+      }
+    }
+    if (j0 < len) {  // this group holds at least one valid position
+#pragma unroll
+      for (int u = 1; u < KPS; ++u) {
+        if (j0 + u >= len) {
+#pragma unroll
+          for (int r = 0; r < REP; ++r) s[u][r] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float mx = s[0][r];
+#pragma unroll
+        for (int u = 1; u < KPS; ++u) mx = fmaxf(mx, s[u][r]);
+        const float m_new = fmaxf(m[r], mx);
+        const float corr = expf(m[r] - m_new);  // 0 on the group's first key
+        l[r] *= corr;
+#pragma unroll
+        for (int e = 0; e < P; ++e) acc[r][e] *= corr;
+#pragma unroll
+        for (int u = 0; u < KPS; ++u) {
+          const float p = expf(s[u][r] - m_new);  // 0 for a masked position
+          l[r] += p;
+#pragma unroll
+          for (int e = 0; e < P; ++e) acc[r][e] = fmaf(p, vf[u][e], acc[r][e]);
+        }
+        m[r] = m_new;
+      }
+    }
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      sm_m[grp][r] = m[r];
+      sm_l[grp][r] = l[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+#pragma unroll
+    for (int e = 0; e < P; ++e) sm_acc[grp][r][d0 + e] = acc[r][e];
+  }
+  __syncthreads();
+
+  // merge the groups' online-softmax states in fixed group order
+  for (int o = threadIdx.x; o < rep * HD; o += kThreads) {
+    const int r = o / HD;
+    const int d = o % HD;
+    float mx = -INFINITY;
+    for (int gi = 0; gi < NG; ++gi) mx = fmaxf(mx, sm_m[gi][r]);
+    float den = 0.f, num = 0.f;
+    if (mx != -INFINITY) {  // kv_len 0 leaves every group empty: output 0
+      for (int gi = 0; gi < NG; ++gi) {
+        const float w = expf(sm_m[gi][r] - mx);  // 0 for an empty group
+        den = fmaf(sm_l[gi][r], w, den);
+        num = fmaf(sm_acc[gi][r][d], w, num);
+      }
+    }
+    store(out + (static_cast<size_t>(b) * H + g * rep + r) * HD + d,
+          num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* kv_len,
+                      T* out, int B, int S, int KVH, int rep,
+                      cudaStream_t stream) {
+  const dim3 grid(B * KVH);
+  if (rep == 1) {
+    decode_attention_kernel<T, HD, 1>
+        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+  } else if (rep == 2) {
+    decode_attention_kernel<T, HD, 2>
+        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+  } else if (rep <= 4) {
+    decode_attention_kernel<T, HD, 4>
+        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+  } else if (rep <= 8) {
+    decode_attention_kernel<T, HD, 8>
+        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_t(const void* q, const void* k, const void* v,
+                     const int* kv_len, void* out, int B, int S, int KVH,
+                     int rep, int hd, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  switch (hd) {
+    case 32:
+      return launch_hd<T, 32>(qt, kt, vt, kv_len, ot, B, S, KVH, rep, stream);
+    case 64:
+      return launch_hd<T, 64>(qt, kt, vt, kv_len, ot, B, S, KVH, rep, stream);
+    case 128:
+      return launch_hd<T, 128>(qt, kt, vt, kv_len, ot, B, S, KVH, rep,
+                               stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Returns the CUDA error of the launch (0 = cudaSuccess).
+extern "C" int decode_attention_launch(const void* q, const void* k,
+                                       const void* v, const void* kv_len,
+                                       void* out, int B, int S, int H,
+                                       int KVH, int hd, int dtype,
+                                       void* stream) {
+  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rep = H / KVH;
+  const int* lens = static_cast<const int*>(kv_len);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return static_cast<int>(
+        launch_t<float>(q, k, v, lens, out, B, S, KVH, rep, hd, st));
+  }
+  if (dtype == 1) {
+    return static_cast<int>(
+        launch_t<__nv_bfloat16>(q, k, v, lens, out, B, S, KVH, rep, hd, st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

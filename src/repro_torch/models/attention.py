@@ -1,0 +1,272 @@
+"""GQA attention: chunked online-softmax reference + KV-cache decode.
+
+Counterpart of ``repro/models/attention.py`` for the dense LM family:
+grouped KV heads (GQA/MQA), qk-norm (qwen3), QKV bias (qwen2) and plain
+RoPE.  Prefill and training run :func:`chunked_attention` in plain
+PyTorch, as the reference runs its jnp path there.  Both decode paths,
+the engine's slotted step and the scalar step of its oracle, go through
+one attention implementation, ``kernels/decode_attention``: the
+hand-written CUDA kernel for CUDA tensors, its plain version on the CPU.
+
+Decode writes the new K/V row into the cache *in place* (the reference's
+``dynamic_update_slice`` returns a new array); the functions still return
+the caches so call sites read like the reference's.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig
+                   ) -> Dict[str, torch.Tensor]:
+    d, h, kvh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+    p = {
+        "q": dense_init(gen, (d, h * hd), d),
+        "k": dense_init(gen, (d, kvh * hd), d),
+        "v": dense_init(gen, (d, kvh * hd), d),
+        "o": dense_init(gen, (h * hd, d), h * hd),
+    }
+    dev = gen.device
+    if cfg.qkv_bias:
+        p["q_b"] = torch.zeros((h * hd,), dtype=torch.float32, device=dev)
+        p["k_b"] = torch.zeros((kvh * hd,), dtype=torch.float32, device=dev)
+        p["v_b"] = torch.zeros((kvh * hd,), dtype=torch.float32, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Core contraction: chunked online-softmax attention
+# ---------------------------------------------------------------------------
+
+
+N_CAUSAL_Q_BLOCKS = 8
+
+
+def chunked_attention(
+    q: torch.Tensor,           # (B, Sq, H, hd)
+    k: torch.Tensor,           # (B, Sk, KVH, hd)
+    v: torch.Tensor,           # (B, Sk, KVH, hd)
+    *,
+    causal: bool,
+    chunk: int = 512,
+    q_offset: int = 0,         # absolute position of q[0]
+    kv_len: Union[int, torch.Tensor, None] = None,  # valid KV prefix
+    block_causal: bool = True,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks. Returns (B, Sq, H, hd).
+
+    Causal full-sequence calls are q-blocked: the query range is split into
+    ``N_CAUSAL_Q_BLOCKS`` blocks, each attending only to its causal KV
+    prefix, which skips the fully masked chunks a single pass would
+    compute and discard.
+    """
+    b, sq, h, hd = q.shape
+    if (block_causal and causal and kv_len is None and sq == k.shape[1]
+            and q_offset == 0 and sq >= 2 * chunk
+            and sq % N_CAUSAL_Q_BLOCKS == 0):
+        qb = sq // N_CAUSAL_Q_BLOCKS
+        outs = []
+        for i in range(N_CAUSAL_Q_BLOCKS):
+            hi = (i + 1) * qb
+            outs.append(chunked_attention(
+                q[:, i * qb: hi], k[:, :hi], v[:, :hi],
+                causal=True, chunk=chunk, q_offset=i * qb,
+                block_causal=False))
+        return torch.cat(outs, dim=1)
+    sk, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads over {kvh} KV heads")
+    rep = h // kvh
+    scale = 1.0 / (hd ** 0.5)
+    if sq == 1:
+        # single query: no chunk loop, scores are only (B, KVH, rep, Sk).
+        # ``kv_len`` is a scalar (all rows share a length) or a (B,) vector.
+        qg = q.reshape(b, kvh, rep, hd).float() * scale
+        s = torch.einsum("bgrd,bcgd->bgrc", qg, k.float())
+        k_pos = torch.arange(sk, device=q.device)
+        if isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1:
+            mask = (k_pos[None, :] < kv_len[:, None])[:, None, None, :]
+        else:
+            mask = k_pos < (sk if kv_len is None else kv_len)
+            if causal and kv_len is None:
+                mask = mask & (k_pos <= q_offset)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bgrc,bcgd->bgrd", p, v.float())
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    chunk = min(chunk, sk)
+    n_chunks = (sk + chunk - 1) // chunk
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+
+    qg = q.reshape(b, sq, kvh, rep, hd).float() * scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)     # (Sq,)
+    limit = sk if kv_len is None else kv_len
+    m = torch.full((b, sq, kvh, rep), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, sq, kvh, rep, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(n_chunks):
+        kj = k[:, j * chunk:(j + 1) * chunk].float()
+        vj = v[:, j * chunk:(j + 1) * chunk].float()
+        k_pos = j * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqgrd,bcgd->bqgrc", qg, kj)
+        mask = k_pos[None, :] < limit                        # (1, chunk)
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])  # (Sq, chunk)
+        s = torch.where(mask[None, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqgrc,bcgd->bqgrd", p, vj)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block forward
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["q"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (x @ p["k"].to(x.dtype)).reshape(b, s, kvh, hd)
+    v = (x @ p["v"].to(x.dtype)).reshape(b, s, kvh, hd)
+    if cfg.qkv_bias:
+        q = q + p["q_b"].to(x.dtype).reshape(h, hd)
+        k = k + p["k_b"].to(x.dtype).reshape(kvh, hd)
+        v = v + p["v_b"].to(x.dtype).reshape(kvh, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _rotate(q, k, positions: torch.Tensor, cfg: ModelConfig):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not yet ported")
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _arange_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    cfg: ModelConfig, *,
+                    positions: Optional[torch.Tensor] = None,
+                    causal: bool = True, use_rope: bool = True
+                    ) -> torch.Tensor:
+    """Self-attention over a full sequence (train / prefill)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        if positions is None:
+            positions = _arange_positions(b, s, x.device)
+        q, k = _rotate(q, k, positions, cfg)
+    out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    return out.reshape(b, s, -1) @ p["o"].to(x.dtype)
+
+
+def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
+                      positions: Optional[torch.Tensor] = None,
+                      use_rope: bool = True):
+    """Prefill: returns (out, (k_cache, v_cache)) with caches padded to
+    ``cache_len`` so decode can write in place."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        if positions is None:
+            positions = _arange_positions(b, s, x.device)
+        q, k = _rotate(q, k, positions, cfg)
+    out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    pad = cache_len - s
+    kc = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vc = F.pad(v, (0, 0, 0, 0, 0, pad))
+    y = out.reshape(b, s, -1) @ p["o"].to(x.dtype)
+    return y, (kc, vc)
+
+
+def attention_decode(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                # (B, 1, D)
+    k_cache: torch.Tensor,          # (B, S_max, KVH, hd), updated in place
+    v_cache: torch.Tensor,
+    pos: int,                       # current length, shared by every row
+    cfg: ModelConfig,
+    use_rope: bool = True,
+):
+    """One decode step at one shared position. Returns (out, k_cache,
+    v_cache); the caches are the inputs, written in place."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        positions = torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        q, k = _rotate(q, k, positions, cfg)
+    # dynamic_update_slice clamps its start so the row fits; so does this
+    pos_w = min(pos, k_cache.shape[1] - 1)
+    k_cache[:, pos_w] = k[:, 0]
+    v_cache[:, pos_w] = v[:, 0]
+    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    out = decode_attention(q[:, 0], k_cache, v_cache, kv_len)[:, None]
+    y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
+    return y, k_cache, v_cache
+
+
+def attention_decode_slotted(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                # (B, 1, D)
+    k_cache: torch.Tensor,          # (B, S_max, KVH, hd), updated in place
+    v_cache: torch.Tensor,
+    lens: torch.Tensor,             # (B,) int32: per-slot current lengths
+    cfg: ModelConfig,
+    use_rope: bool = True,
+):
+    """One decode step with independent per-slot sequence lengths.
+
+    Each batch row is a serving slot at its own position: RoPE is applied
+    at ``lens[b]``, the new KV row is written at ``lens[b]`` (clamped so a
+    finished slot at the cache boundary overwrites its own dead tail rather
+    than a neighbour), and attention masks each row to its own valid
+    prefix.  Returns (out, k_cache, v_cache); the caches are the inputs,
+    written in place.
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        q, k = _rotate(q, k, lens[:, None], cfg)
+    pos_w = lens.clamp(max=k_cache.shape[1] - 1).long()
+    rows = torch.arange(b, device=x.device)
+    k_cache[rows, pos_w] = k[:, 0]
+    v_cache[rows, pos_w] = v[:, 0]
+    out = decode_attention(q[:, 0], k_cache, v_cache, lens + 1)[:, None]
+    y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
+    return y, k_cache, v_cache

@@ -1,0 +1,51 @@
+"""Reference params -> port params.
+
+The only place where the two packages' layouts are mapped.  ``repro``
+stacks every layer's params on a leading ``layers`` axis (for
+``lax.scan``); the port keeps a list of per-layer dicts.  Leaf names and
+``(in, out)`` matrix layouts are the same on both sides.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes bf16: reinterpret bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
+                    ) -> Dict[str, Any]:
+    """``tree`` is the reference's ``init_lm`` params with numpy leaves
+    (``jax.tree.map(np.asarray, params)``).  Returns the port's params on
+    ``device``, each leaf in its source dtype."""
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    if "moe" in layers:
+        raise NotImplementedError("MoE params are not yet ported")
+    n_layers = np.asarray(layers["attn_norm"]["scale"]).shape[0]
+    out: Dict[str, Any] = {
+        "embed": _tensor(tree["embed"], dev),
+        "layers": [_map(layers, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
+                   for i in range(n_layers)],
+        "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, dev)),
+    }
+    if "unembed" in tree:
+        out["unembed"] = _tensor(tree["unembed"], dev)
+    return out

@@ -1,0 +1,89 @@
+"""Port decode attention vs the reference's Pallas kernel and oracle (CPU).
+
+The reference's Pallas kernel runs in interpret mode here, as its own
+tests run it off-TPU.  The port's CUDA kernel needs the card; its on-card
+checks are in tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ops import decode_attention as jax_op
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+)
+from torch_parity import F32_TOL, np_of
+
+
+def _inputs(b, s, kvh, rep, hd, lens, dtype=np.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, kvh * rep, hd)).astype(dtype)
+    k = rng.normal(size=(b, s, kvh, hd)).astype(dtype)
+    v = rng.normal(size=(b, s, kvh, hd)).astype(dtype)
+    return q, k, v, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 7])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_plain_version_matches_reference_kernel_and_oracle(rep, hd):
+    """kv_len edge cases: 1, S, and lengths that are no multiple of any
+    tile."""
+    s = 40
+    q, k, v, lens = _inputs(4, s, 2, rep, hd, [1, s, 5, 17])
+    got = decode_attention_ref(*map(torch.from_numpy, (q, k, v, lens)))
+    args = tuple(map(jnp.asarray, (q, k, v, lens)))
+    np.testing.assert_allclose(np_of(got), np.asarray(jax_ref(*args)),
+                               **F32_TOL)
+    np.testing.assert_allclose(
+        np_of(got), np.asarray(jax_op(*args, impl="pallas", interpret=True,
+                                      block_k=8)), **F32_TOL)
+
+
+def test_plain_version_bf16_matches_oracle():
+    """bf16 in and out, f32 inside: equal to the oracle up to one bf16
+    rounding of the output."""
+    import ml_dtypes
+    q, k, v, lens = _inputs(3, 24, 2, 4, 64, [24, 9, 1])
+    got = decode_attention_ref(*(torch.from_numpy(a).to(torch.bfloat16)
+                                 for a in (q, k, v)), torch.from_numpy(lens))
+    want = jax_ref(*(jnp.asarray(a.astype(ml_dtypes.bfloat16))
+                     for a in (q, k, v)), jnp.asarray(lens))
+    np.testing.assert_allclose(np_of(got.float()),
+                               np.asarray(want).astype(np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_cpu_wrapper_takes_plain_path_and_counts_no_launch():
+    q, k, v, lens = map(torch.from_numpy, _inputs(2, 16, 2, 4, 32, [3, 16]))
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    assert torch.equal(out, decode_attention_ref(q, k, v, lens))
+    assert decode_attention.launches == before
+
+
+BAD_INPUTS = {
+    "hd_unsupported": dict(hd=48),
+    "rep_over_8": dict(rep=9),
+    "kv_len_int64": dict(lens_dtype=torch.int64),
+    "dtype_mismatch": dict(k_dtype=torch.bfloat16),
+    "float16": dict(dtype=torch.float16),
+    "not_contiguous": dict(strided=True),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_INPUTS))
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    opt = BAD_INPUTS[case]
+    hd, rep = opt.get("hd", 32), opt.get("rep", 2)
+    q, k, v, lens = map(torch.from_numpy,
+                        _inputs(2, 8, 1, rep, hd, [3, 8]))
+    dtype = opt.get("dtype", torch.float32)
+    q, k, v = q.to(dtype), k.to(opt.get("k_dtype", dtype)), v.to(dtype)
+    lens = lens.to(opt.get("lens_dtype", torch.int32))
+    if opt.get("strided"):
+        k, v = torch.cat([k, k], 1)[:, ::2], torch.cat([v, v], 1)[:, ::2]
+    with pytest.raises(ValueError):
+        decode_attention(q, k, v, lens)
