@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
 
 Run from the repository root, with no arguments:
 
@@ -11,10 +11,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    with nvidia-smi;
 2. the port's CUDA sources are built (repro_torch/_build.py, nvcc for
    sm_90a), and the build seconds printed;
-3. each kernel is held against its plain PyTorch version on the card at the
-   decode shapes of qwen3-4b and qwen2-0.5b, f32 and bf16, with mixed
-   kv_len (1, S, and lengths that are no multiple of any tile), and timed
-   beside the plain version and PyTorch's scaled_dot_product_attention;
+3. the dense decode-attention kernel is held against its plain PyTorch
+   version on the card at the decode shapes of qwen3-4b and qwen2-0.5b,
+   f32 and bf16, with mixed kv_len (1, S, and lengths that are no multiple
+   of any tile), and timed beside the plain version and PyTorch's
+   scaled_dot_product_attention;
+3b. the paged kernel likewise, over a shuffled pool of B*NB + 7 pages with
+   sentinel table entries past each row's kv_len; with identity tables
+   (NB*BS == S) it must equal the dense kernel bit for bit;
 4. qwen3-4b at its published widths (bf16, random weights from a seed) is
    served: first through the launcher (repro_torch.launch.serve.main), then
    through a ServeEngine with 8 slots and a 1024-token cache answering 16
@@ -24,7 +28,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    swapped for the plain version.  The share of requests whose greedy
    tokens equal the one-request oracle (greedy_reference) is reported, not
    gated: cuBLAS may pick other GEMM algorithms at batch 1 and batch 8.
-5. the last lines are the card (nvidia-smi), a JSON line of every kernel
+5. the same 16 requests through the paged engine (launcher first, then a
+   ServeEngine with 16-token blocks and a worst-case pool of 512): every
+   request finishes, the paged kernel launches decode_steps x layers times
+   and the dense one never, and every request's tokens equal phase 4's;
+6. paged capacity at the dense cache's memory: 32 slots over the same 512
+   blocks answer a 48-request long-tail burst; every request comes back
+   once (done, or shed ``oom`` with its partial output), more than 8 are in
+   flight at the peak, and the sheds are counted;
+7. the router: the launcher with ``--router --paged``, then two paged
+   replicas on the one card sharing one copy of the params answer the 16
+   requests without faults and again losing replica 1 a few ticks in;
+   every request comes back once in both runs, and the loss fails over;
+8. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -116,20 +132,34 @@ def eager_ms(fn, arg_sets, iters: int = 60) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, kv_len) -> tuple:
-    """Least time for one decode attention call on these inputs: each
-    input byte read once (K/V only up to kv_len), the output written once;
-    4*H*hd flops per valid position (q.k and p.v)."""
+def bound_ms(q, kvh, valid, extra_bytes: int = 0) -> tuple:
+    """Least time for one decode attention call: each input byte read once
+    (K/V only at the ``valid[b]`` positions each row attends to, plus
+    ``extra_bytes``), the output written once; 4*H*hd flops per valid
+    position (q.k and p.v)."""
     b, h, hd = q.shape
-    kvh = k.shape[2]
     item = q.element_size()
-    n_valid = int(kv_len.clamp(max=k.shape[1]).sum())
+    n_valid = int(valid.sum())
     nbytes = (2 * q.numel() * item + 2 * n_valid * kvh * hd * item
-              + kv_len.numel() * 4)
+              + valid.numel() * 4 + extra_bytes)
     flops = 4 * h * hd * n_valid
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound_ms(q, k, kv_len) -> tuple:
+    """The dense kernel's bound: k (B, S, KVH, hd), kv_len clamped to S."""
+    return bound_ms(q, k.shape[2], kv_len.clamp(max=k.shape[1]))
+
+
+def paged_bound_ms(q, k_pages, tables, kv_len) -> tuple:
+    """The paged kernel's bound: kv_len clamped to NB*BS, plus the table
+    entries those positions need (4 bytes each)."""
+    bs = k_pages.shape[1]
+    valid = kv_len.clamp(max=tables.shape[1] * bs)
+    return bound_ms(q, k_pages.shape[2], valid,
+                    4 * int(((valid + bs - 1) // bs).sum()))
 
 
 def sdpa_call(q, k, v, kv_len):
@@ -189,36 +219,104 @@ def phase_kernels(torch, decode_attention, decode_attention_ref) -> None:
             del sets
 
 
-def phase_serve(torch, device: str = "cuda", reduced: bool = False):
-    """Full-width qwen3-4b through the launcher and the engine (``device``
-    and ``reduced`` let the flow be rehearsed on the CPU at toy size)."""
-    import dataclasses
+def paged_case(torch, lens, nb, bs, kvh, rep, hd, dtype, gen, n_pages):
+    """A pool of ``n_pages`` pages shared out across rows by a seeded
+    permutation; table entries past each row's kv_len hold the sentinel
+    ``n_pages``."""
+    b = len(lens)
+    q = torch.randn(b, kvh * rep, hd, generator=gen, device="cuda",
+                    dtype=dtype)
+    kp = torch.randn(n_pages, bs, kvh, hd, generator=gen, device="cuda",
+                     dtype=dtype)
+    vp = torch.randn(n_pages, bs, kvh, hd, generator=gen, device="cuda",
+                     dtype=dtype)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    tables = torch.full((b, nb), n_pages, dtype=torch.int32, device="cuda")
+    for row, n in enumerate(lens):
+        used = min(-(-n // bs), nb)
+        tables[row, :used] = perm[row * nb: row * nb + used].to(torch.int32)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables, kv_len
 
-    import numpy as np
 
-    import repro_torch.models.attention as attention_mod
-    from repro_torch.configs import get_config, reduced_config
+def gather_call(k_pages, v_pages, tables):
+    """The gather half of the two-call PyTorch yardstick (gather, then
+    SDPA on the dense view)."""
+    from repro_torch.kernels.decode_attention import gather_paged_kv
+    return gather_paged_kv(k_pages, v_pages, tables)
+
+
+def phase_paged_kernels(torch) -> None:
+    """Paged kernel vs plain version at the decode shapes of both served
+    models, and vs the dense kernel on identity tables (bit for bit)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention,
-        decode_attention_ref,
+        paged_decode_attention,
+        paged_decode_attention_ref,
     )
-    from repro_torch.launch import serve as launch_serve
+    shapes = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64)}
+    b, nb, bs = 8, 64, 16
+    s = nb * bs
+    lens = [1, s, 37, 129, 400, 700, 1000, 255]
+    for model, (h, kvh, hd) in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            n_pages = b * nb + 7
+            per = 2 * n_pages * bs * kvh * hd * dtype.itemsize
+            n_sets = max(2, -(-200_000_000 // per))
+            sets = [paged_case(torch, lens, nb, bs, kvh, h // kvh, hd, dtype,
+                               gen, n_pages) for _ in range(n_sets)]
+            got = paged_decode_attention(*sets[0])
+            want = paged_decode_attention_ref(*sets[0])
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(),
+                                  rtol=TOL[name], atol=TOL[name]):
+                raise RuntimeError(f"paged_decode_attention {model} {name}: "
+                                   f"kernel disagrees with plain, max err "
+                                   f"{err}")
+            # identity tables: the dense kernel's arithmetic, bit for bit
+            q, k, v, kv_len = (sets[0][0],
+                               torch.randn(b, s, kvh, hd, generator=gen,
+                                           device="cuda", dtype=dtype),
+                               torch.randn(b, s, kvh, hd, generator=gen,
+                                           device="cuda", dtype=dtype),
+                               sets[0][4])
+            ident = torch.arange(b * nb, dtype=torch.int32,
+                                 device="cuda").reshape(b, nb)
+            paged = paged_decode_attention(
+                q, k.reshape(b * nb, bs, kvh, hd),
+                v.reshape(b * nb, bs, kvh, hd), ident, kv_len)
+            if not torch.equal(paged, decode_attention(q, k, v, kv_len)):
+                raise RuntimeError(f"paged_decode_attention {model} {name}: "
+                                   f"identity tables differ from the dense "
+                                   f"kernel")
+            ms = time_ms(paged_decode_attention, sets)
+            plain_ms = time_ms(paged_decode_attention_ref, sets)
+            gather_ms = time_ms(gather_call, [x[1:4] for x in sets])
+            dense_sets = [(x[0], *gather_call(*x[1:4]), x[4])
+                          for x in sets]
+            lib_ms = time_ms(sdpa_call, dense_sets)
+            host_ms = eager_ms(paged_decode_attention, sets)
+            bound, by = paged_bound_ms(sets[0][0], sets[0][1], sets[0][3],
+                                       sets[0][4])
+            log(f"[kernel] paged_decode_attention {model} {name} B={b} "
+                f"NB={nb} BS={bs} P={n_pages} H={h} KVH={kvh} hd={hd} "
+                f"kv_len={lens}: max_abs_err={err:.3g} (tol {TOL[name]}), "
+                f"identity tables == dense kernel bit for bit; "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"gather_ms={gather_ms:.4f} + sdpa_ms(gathered)={lib_ms:.4f}"
+                f" bound_ms={bound:.4f} ({by}); eager call with host launch "
+                f"cost {host_ms:.4f} ms")
+            del sets, dense_sets
+
+
+def load_model(torch, device: str, reduced: bool):
+    """qwen3-4b (published widths, or the reduced config) with random
+    weights from SEED on ``device``."""
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.registry import build_model
-    from repro_torch.serve import (
-        EngineConfig,
-        ServeEngine,
-        ServeRequest,
-        greedy_reference,
-    )
-
-    log(f"[serve] launcher: repro_torch.launch.serve.main --arch qwen3-4b "
-        f"{'--reduced' if reduced else '--no-reduced'} --engine")
-    t0 = time.perf_counter()
-    launch_serve.main(["--arch", "qwen3-4b",
-                       "--reduced" if reduced else "--no-reduced", "--engine",
-                       "--device", device, "--seed", str(SEED)])
-    log(f"[serve] launcher done in {time.perf_counter() - t0:.1f}s")
-
     cfg = (reduced_config if reduced else get_config)("qwen3-4b")
     bundle = build_model(cfg)
     t0 = time.perf_counter()
@@ -231,42 +329,49 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f}B params in {cfg.dtype}, init "
         f"{time.perf_counter() - t0:.1f}s")
+    return cfg, bundle, params
 
-    slots, cache_len, max_new = 8, 1024, 16
+
+def burst_requests(cfg, max_new: int = 16):
+    """The 16 requests of phases 4, 5 and 7 (prompts of 32-700 tokens, a
+    seeded order), made anew on every call."""
+    import numpy as np
+
+    from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(SEED)
     prompt_lens = [int(n) for n in
                    rng.permutation(np.linspace(32, 700, 16).astype(int))]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in prompt_lens]
+    return [ServeRequest(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
 
-    def requests():
-        return [ServeRequest(rid=i, prompt=p, max_new=max_new)
-                for i, p in enumerate(prompts)]
 
-    engine = ServeEngine(bundle, params, EngineConfig(
-        slots=slots, cache_len=cache_len, pad_to=8, max_prefill_batch=8),
-        device=device)
-    engine.run(requests())                       # warm-up: cuBLAS, allocator
-    torch.cuda.synchronize()
-
+def reset_counts() -> None:
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+    )
     decode_attention.launches = 0
-    t0 = time.perf_counter()
-    done = engine.run(requests())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = decode_attention.launches
-    stats = engine.stats()
-    if len(done) != 16 or not all(r.done and len(r.out) == max_new
-                                  for r in done):
-        raise RuntimeError("not every request finished with its tokens")
-    want = stats["decode_steps"] * cfg.n_layers
-    if launches != want:
-        raise RuntimeError(f"decode_attention launched {launches} times, "
-                           f"want decode_steps x layers = {want}")
-    tokens = sum(len(r.out) for r in done)
+    paged_decode_attention.launches = 0
 
-    # the same run once more, each prefill and decode call synchronised and
-    # timed, to split the wall time between them
+
+def read_counts() -> tuple:
+    """(dense kernel launches, paged kernel launches) since reset_counts."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+    )
+    return decode_attention.launches, paged_decode_attention.launches
+
+
+def split_run(torch, engine, bundle_fields, reqs) -> dict:
+    """Run ``reqs`` once more through an engine like ``engine`` whose
+    prefill and decode calls are each synchronised and timed, to split the
+    wall time between them."""
+    import dataclasses
+
+    from repro_torch.serve import ServeEngine
     split = {"prefill": [0, 0.0], "decode": [0, 0.0]}
 
     def timed(name, fn):
@@ -280,13 +385,102 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
             return out
         return call
 
-    ServeEngine(dataclasses.replace(
-        bundle, prefill_slotted=timed("prefill", bundle.prefill_slotted),
-        decode_slotted=timed("decode", bundle.decode_slotted)), params,
-        engine.cfg, device=device).run(requests())
+    bundle = engine.bundle
+    fields = {f: timed(kind, getattr(bundle, f))
+              for f, kind in bundle_fields.items()}
+    ServeEngine(dataclasses.replace(bundle, **fields), engine.params,
+                engine.cfg, device=engine.device).run(reqs)
     log("[serve] split: " + ", ".join(
         f"{k} {n} calls {t:.3f}s ({1e3 * t / max(n, 1):.2f} ms/call)"
         for k, (n, t) in split.items()))
+    return split
+
+
+def profile_decode(torch, tag, decode, params, state, batch, step_ms):
+    """Where three decode steps' device time goes (torch.profiler, CUPTI):
+    device busy from the kernels (and copies) the profiler saw on the card,
+    idle share against ``step_ms``, the unprofiled step of a split run."""
+    from torch.profiler import ProfilerActivity, profile
+    _, state = decode(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _, state = decode(params, state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del state
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"{tag} the profiler recorded no device kernels: device busy "
+            f"and idle share not measured")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 3e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    log(f"{tag} decode step: device busy {busy_ms:.3f} ms/step over "
+        f"{len(kernels) // 3} kernels/step; unprofiled step {step_ms:.3f} ms "
+        f"-> device idle share {1 - busy_ms / step_ms:.3f} (wall under the "
+        f"profiler {wall_us / 3e3:.3f} ms/step)")
+    for name, (n, t) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][1])[:8]:
+        log(f"{tag}   {t / 3e3:8.4f} ms/step {n // 3:5d}/step  {name[:90]}")
+
+
+def phase_serve(torch, device: str = "cuda", reduced: bool = False):
+    """Full-width qwen3-4b through the launcher and the engine (``device``
+    and ``reduced`` let the flow be rehearsed on the CPU at toy size)."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_ref,
+    )
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import EngineConfig, ServeEngine, greedy_reference
+
+    log(f"[serve] launcher: repro_torch.launch.serve.main --arch qwen3-4b "
+        f"{'--reduced' if reduced else '--no-reduced'} --engine")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", "qwen3-4b",
+                       "--reduced" if reduced else "--no-reduced", "--engine",
+                       "--device", device, "--seed", str(SEED)])
+    log(f"[serve] launcher done in {time.perf_counter() - t0:.1f}s")
+
+    model = load_model(torch, device, reduced)
+    cfg, bundle, params = model
+    slots, cache_len, max_new = 8, 1024, 16
+    prompt_lens = [len(r.prompt) for r in burst_requests(cfg)]
+
+    engine = ServeEngine(bundle, params, EngineConfig(
+        slots=slots, cache_len=cache_len, pad_to=8, max_prefill_batch=8),
+        device=device)
+    engine.run(burst_requests(cfg))          # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    done = engine.run(burst_requests(cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, paged_launches = read_counts()
+    stats = engine.stats()
+    if len(done) != 16 or not all(r.done and len(r.out) == max_new
+                                  for r in done):
+        raise RuntimeError("not every request finished with its tokens")
+    want = stats["decode_steps"] * cfg.n_layers
+    if launches != want or paged_launches:
+        raise RuntimeError(f"decode_attention launched {launches} times, "
+                           f"want decode_steps x layers = {want}; the paged "
+                           f"kernel {paged_launches}, want 0")
+    tokens = sum(len(r.out) for r in done)
+
+    split = split_run(torch, engine, {"prefill_slotted": "prefill",
+                                      "decode_slotted": "decode"},
+                      burst_requests(cfg))
     log(f"[serve] engine: {len(done)} requests, prompts {sorted(prompt_lens)}"
         f", max_new {max_new}, slots {slots}, cache_len {cache_len}: "
         f"{tokens} tokens in {wall:.3f}s = {tokens / wall:.1f} tok/s; "
@@ -295,7 +489,7 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
 
     # one mid-run decode step, kernel vs plain attention, same state
     engine.reset()
-    for r in requests():
+    for r in burst_requests(cfg):
         engine.submit(r)
     while engine.decode_steps < 6:
         engine.tick(float(engine.decode_steps))
@@ -334,43 +528,9 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
         raise RuntimeError(f"decode-step logits, kernel vs plain attention: "
                            f"relative error {step_rel} over {LOGIT_TOL}")
 
-    # where three decode steps' device time goes (torch.profiler, CUPTI)
-    from torch.profiler import ProfilerActivity, profile
-    state = {k: v.clone() for k, v in snap.items()}
-    bundle.decode_slotted(params, state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            _, state = bundle.decode_slotted(params, state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    del state
-
-    # device busy: the kernels (and copies) the profiler saw on the card;
-    # idle share against the unprofiled decode step of the split above
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     step_ms = 1e3 * split["decode"][1] / max(split["decode"][0], 1)
-    if not kernels:
-        log("[profile] the profiler recorded no device kernels: device busy "
-            "and idle share not measured")
-    else:
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 3e3
-        by_name = {}
-        for e in kernels:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-        log(f"[profile] decode step: device busy {busy_ms:.3f} ms/step over "
-            f"{len(kernels) // 3} kernels/step; unprofiled step "
-            f"{step_ms:.3f} ms -> device idle share "
-            f"{1 - busy_ms / step_ms:.3f} (wall under the profiler "
-            f"{wall_us / 3e3:.3f} ms/step)")
-        for name, (n, t) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][1])[:8]:
-            log(f"[profile]   {t / 3e3:8.4f} ms/step {n // 3:5d}/step  "
-                f"{name[:90]}")
+    profile_decode(torch, "[profile]", bundle.decode_slotted, params,
+                   {k: v.clone() for k, v in snap.items()}, batch, step_ms)
 
     # the kernel at the main path's own inputs: this step's per-layer
     # caches (distinct memory per layer, as in a forward pass)
@@ -411,7 +571,225 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
         same += ref_toks == r.out
     log(f"[serve] greedy tokens equal to greedy_reference: {same}/{len(done)}"
         f" requests (reported, not gated)")
+    return launches, path, {"model": model, "tokens": {r.rid: r.out
+                                                       for r in done}}
+
+
+def phase_paged_serve(torch, model, dense_tokens, device: str = "cuda",
+                      reduced: bool = False):
+    """Phase 4's requests through the paged engine: launcher, then engine;
+    tokens must equal phase 4's dense engine's, request for request."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        gather_paged_kv,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+    )
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    log(f"[paged] launcher: repro_torch.launch.serve.main --arch qwen3-4b "
+        f"{'--reduced' if reduced else '--no-reduced'} --engine --paged")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", "qwen3-4b",
+                       "--reduced" if reduced else "--no-reduced", "--engine",
+                       "--paged", "--device", device, "--seed", str(SEED)])
+    log(f"[paged] launcher done in {time.perf_counter() - t0:.1f}s")
+
+    cfg, bundle, params = model
+    slots, cache_len, max_new = 8, 1024, 16
+    engine = ServeEngine(bundle, params, EngineConfig(
+        slots=slots, cache_len=cache_len, pad_to=8, max_prefill_batch=8,
+        paged=True, block_size=16), device=device)
+    engine.run(burst_requests(cfg))              # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    done = engine.run(burst_requests(cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dense_launches, launches = read_counts()
+    stats = engine.stats()
+    if len(done) != 16 or not all(r.done and len(r.out) == max_new
+                                  and not r.oom for r in done):
+        raise RuntimeError("paged: not every request finished with its "
+                           "tokens")
+    want = stats["decode_steps"] * cfg.n_layers
+    if launches != want or dense_launches:
+        raise RuntimeError(f"paged_decode_attention launched {launches} "
+                           f"times, want decode_steps x layers = {want}; "
+                           f"the dense kernel {dense_launches}, want 0")
+    same = sum(r.out == dense_tokens[r.rid] for r in done)
+    if same != len(done):
+        raise RuntimeError(f"paged engine tokens equal the dense engine's "
+                           f"for {same}/{len(done)} requests, want all")
+    tokens = sum(len(r.out) for r in done)
+    split = split_run(torch, engine, {"prefill_paged": "prefill",
+                                      "decode_paged": "decode"},
+                      burst_requests(cfg))
+    log(f"[paged] engine: {len(done)} requests, max_new {max_new}, slots "
+        f"{slots}, cache_len {cache_len}, block_size 16: {tokens} tokens in "
+        f"{wall:.3f}s = {tokens / wall:.1f} tok/s; stats {stats}; "
+        f"paged_decode_attention launches {launches} (= "
+        f"{stats['decode_steps']} x {cfg.n_layers}), dense kernel 0; tokens "
+        f"equal to the dense engine's for {same}/{len(done)} requests")
+
+    # the kernel at the main path's own inputs: a mid-run step's pools,
+    # one pair per layer (distinct memory per layer, as in a forward pass)
+    engine.reset()
+    for r in burst_requests(cfg):
+        engine.submit(r)
+    while engine.decode_steps < 6:
+        engine.tick(float(engine.decode_steps))
+    engine._refresh_tables()
+    cache = engine.cache
+    kv_len = cache["lens"] + 1
+    tables = cache["tables"]
+    active = torch.tensor([r is not None for r in engine.active],
+                          device=device)
+    batch = {"tokens": torch.as_tensor(engine.last_tok[:, None],
+                                       device=device), "active": active}
+    profile_decode(torch, "[paged-profile]", bundle.decode_paged, params,
+                   {k: v.clone() for k, v in cache.items()}, batch,
+                   1e3 * split["decode"][1] / max(split["decode"][0], 1))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn(slots, cfg.n_heads, cfg.resolved_head_dim,
+                    generator=gen, device=device, dtype=cache["k"].dtype)
+    sets = [(q, cache["k"][i], cache["v"][i], tables, kv_len)
+            for i in range(cfg.n_layers)]
+    got = paged_decode_attention(*sets[0])
+    ref = paged_decode_attention_ref(*sets[0])
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.allclose(got.float(), ref.float(), rtol=TOL["bfloat16"],
+                          atol=TOL["bfloat16"]):
+        raise RuntimeError(f"paged kernel vs plain at the main path's "
+                           f"inputs: max err {err}")
+    bound, by = paged_bound_ms(q, cache["k"][0], tables, kv_len)
+    dense_sets = [(q, *gather_paged_kv(*x[1:4]), kv_len) for x in sets]
+    path = dict(err=err, ms=time_ms(paged_decode_attention, sets),
+                plain_ms=time_ms(paged_decode_attention_ref, sets),
+                gather_ms=time_ms(gather_call, [x[1:4] for x in sets]),
+                library_ms=time_ms(sdpa_call, dense_sets),
+                dense_ms=time_ms(decode_attention, dense_sets),
+                bound_ms=bound, bound_by=by, kv_len=kv_len.tolist(),
+                blocks_used=engine.pool.used,
+                host_ms=eager_ms(paged_decode_attention, sets))
+    log(f"[kernel] paged_decode_attention at the main path's step "
+        f"{engine.decode_steps} (B={slots} NB={tables.shape[1]} BS=16 "
+        f"P={cache['k'].shape[1]} H={cfg.n_heads} KVH={cfg.n_kv_heads} "
+        f"hd={cfg.resolved_head_dim} {cfg.dtype}, kv_len {path['kv_len']}, "
+        f"{path['blocks_used']} blocks in use): max_abs_err={err:.3g} "
+        f"ms={path['ms']:.4f} plain_ms={path['plain_ms']:.4f} "
+        f"gather_ms={path['gather_ms']:.4f} + sdpa_ms(gathered)="
+        f"{path['library_ms']:.4f} (two calls); dense kernel on the "
+        f"gathered view {path['dense_ms']:.4f} ms; bound_ms={bound:.4f} "
+        f"({by}); eager call with host launch cost {path['host_ms']:.4f} "
+        f"ms; {cfg.n_layers} launches per decode step")
+    del sets, dense_sets, cache
+    engine.reset()
     return launches, path
+
+
+def phase_capacity(torch, model, device: str = "cuda",
+                   n_blocks: int = 512, cache_len: int = 1024,
+                   max_prompt: int = 1008, median_prompt: int = 128):
+    """Paged capacity at the dense cache's memory: 32 slots share phase
+    4's 8 x 1024 positions (512 blocks of 16) on a long-tail burst."""
+    from repro_torch.serve import EngineConfig, ServeEngine, longtail_workload
+    cfg, bundle, params = model
+    slots = 32
+    reqs = longtail_workload(48, vocab_size=cfg.vocab_size, rate_per_s=0.0,
+                             median_prompt=median_prompt, sigma=0.8,
+                             max_prompt=max_prompt, out_lens=(16, 32),
+                             seed=0)
+    engine = ServeEngine(bundle, params, EngineConfig(
+        slots=slots, cache_len=cache_len, pad_to=8, max_prefill_batch=8,
+        paged=True, block_size=16, n_blocks=n_blocks), device=device)
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    if sorted(r.rid for r in done) != list(range(len(reqs))):
+        raise RuntimeError("capacity: not every request came back once")
+    oom = [r for r in done if r.oom]
+    if not all(r.done and (r.oom or len(r.out) == r.max_new) for r in done):
+        raise RuntimeError("capacity: a request neither finished nor shed")
+    if stats["shed_blocks"] != len(oom):
+        raise RuntimeError(f"capacity: shed_blocks {stats['shed_blocks']} "
+                           f"!= {len(oom)} requests flagged oom")
+    if not stats["peak_concurrency"] > 8:
+        raise RuntimeError(f"capacity: peak concurrency "
+                           f"{stats['peak_concurrency']}, want > 8")
+    tokens = sum(len(r.out) for r in done)
+    kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim
+                * torch.finfo(getattr(torch, cfg.dtype)).bits // 8)
+    log(f"[capacity] {len(reqs)} long-tail requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)}, median "
+        f"{sorted(len(r.prompt) for r in reqs)[len(reqs) // 2]}), {slots} "
+        f"slots over {n_blocks} blocks x 16 = {n_blocks * 16} positions "
+        f"({n_blocks * 16 * kv_bytes / 1e9:.3f} GB of K/V, {kv_bytes} B a "
+        f"position): peak concurrency {stats['peak_concurrency']}, peak "
+        f"blocks used {stats['peak_blocks_used']}, shed {len(oom)}; "
+        f"{tokens} tokens in {wall:.3f}s = {tokens / wall:.1f} tok/s (first "
+        f"run at these shapes); stats {stats}")
+    return stats
+
+
+def phase_router(torch, model, device: str = "cuda", reduced: bool = False):
+    """Two paged replicas on one card, one copy of the params: a clean run
+    and a run that loses replica 1 a few ticks in."""
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import EngineConfig, ReplicaRouter, RouterConfig
+
+    log(f"[router] launcher: repro_torch.launch.serve.main --arch qwen3-4b "
+        f"{'--reduced' if reduced else '--no-reduced'} --router --paged")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", "qwen3-4b",
+                       "--reduced" if reduced else "--no-reduced", "--router",
+                       "--paged", "--device", device, "--seed", str(SEED)])
+    log(f"[router] launcher done in {time.perf_counter() - t0:.1f}s")
+
+    cfg, bundle, params = model
+    ecfg = EngineConfig(slots=8, cache_len=1024, pad_to=8,
+                        max_prefill_batch=8, paged=True, block_size=16)
+    outs = []
+    for lose in (False, True):
+        plan = FaultPlan([FaultSpec(
+            site="serve.replica", kind="device_loss",
+            when=lambda c: c["replica"] == 1 and c["tick"] == 4)]) \
+            if lose else None
+        router = ReplicaRouter(bundle, params, RouterConfig(
+            replicas=2, engine=ecfg), faults=plan, devices=[device])
+        if not all(rep.engine.params["embed"] is params["embed"]
+                   for rep in router.replicas):
+            raise RuntimeError("router: replicas hold copies of the params")
+        t0 = time.perf_counter()
+        done = router.run(burst_requests(cfg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = router.stats
+        if [r.rid for r in done] != list(range(16)) or not all(
+                r.done and not r.rejected for r in done):
+            raise RuntimeError(f"router ({'replica loss' if lose else 'no '
+                               'faults'}): not every request came back once "
+                               f"and done")
+        if lose and (s["failovers"] < 1 or s["quarantined"] != [1]):
+            raise RuntimeError(f"router: replica loss did not fail over "
+                               f"({s})")
+        tokens = sum(len(r.out) for r in done)
+        log(f"[router] {'replica 1 lost at tick 4' if lose else 'no faults'}"
+            f": {len(done)} requests, {tokens} tokens in {wall:.3f}s = "
+            f"{tokens / wall:.1f} tok/s; stats {s}")
+        outs.append({r.rid: r.out for r in done})
+    same = sum(outs[0][rid] == outs[1][rid] for rid in outs[0])
+    log(f"[router] tokens equal between the clean and the replica-loss run: "
+        f"{same}/16 requests (reported, not gated: a failed-over request is "
+        f"re-decoded in another batch)")
+    return outs
 
 
 def main() -> int:
@@ -450,7 +828,12 @@ def main() -> int:
     t_total = time.perf_counter()
 
     phase_kernels(torch, decode_attention, decode_attention_ref)
-    launches, path = phase_serve(torch)
+    phase_paged_kernels(torch)
+    launches, path, served = phase_serve(torch)
+    paged_launches, paged_path = phase_paged_serve(torch, served["model"],
+                                                   served["tokens"])
+    phase_capacity(torch, served["model"])
+    phase_router(torch, served["model"])
 
     kernels = [{
         "name": "decode_attention",
@@ -464,8 +847,24 @@ def main() -> int:
         "bound_ms": path["bound_ms"],
         "bound_by": path["bound_by"],
         "library_ms": path["library_ms"],
+    }, {
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:125",
+        "launches": paged_launches,
+        "max_abs_err": paged_path["err"],
+        "ms": paged_path["ms"],
+        "plain_ms": paged_path["plain_ms"],
+        "bound_ms": paged_path["bound_ms"],
+        "bound_by": paged_path["bound_by"],
+        "library_ms": paged_path["library_ms"],
+        "gather_ms": paged_path["gather_ms"],
+        "library": "two calls: gather_paged_kv (gather_ms), then "
+                   "scaled_dot_product_attention on the gathered view "
+                   "(library_ms)",
     }]
-    log(f"[done] phases 3-4 in {time.perf_counter() - t_total:.1f}s")
+    log(f"[done] phases 3-7 in {time.perf_counter() - t_total:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

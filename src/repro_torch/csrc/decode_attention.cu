@@ -1,23 +1,38 @@
-// Single-token GQA decode attention over a dense per-row KV cache, for
-// Hopper (sm_90a).
+// Single-token GQA decode attention for Hopper (sm_90a), over a dense
+// per-row KV cache or a paged block pool.  Two entry points, one kernel.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention/kernel.py:67
-// decode_attention_pallas (pallas_call at :106, body _kernel at :29-64).
-// The TPU version walks a sequential grid axis over KV blocks with the
-// online-softmax state in VMEM scratch and skips blocks past kv_len with
-// pl.when.  Blocks on this card run in no order, so the walk over the cache
-// is a loop inside one thread block instead.
+// Replaces the TPU kernels
+//   src/repro/kernels/decode_attention/kernel.py:67 decode_attention_pallas
+//     (pallas_call at :106, body _kernel at :29-64), and
+//   src/repro/kernels/decode_attention/kernel.py:125
+//     paged_decode_attention_pallas (pallas_call at :173, body _paged_kernel
+//     at :115-122, which shares _kernel's online softmax).
+// The TPU versions walk a sequential grid axis over KV blocks with the
+// online-softmax state in VMEM scratch and skip blocks past kv_len with
+// pl.when; the paged one steers each block's BlockSpec through the
+// scalar-prefetched block table.  Blocks on this card run in no order, so
+// the walk over the cache is a loop inside one thread block instead, and a
+// position's row address is computed per position:
+//   dense  (b*S + j) * KVH*hd                        k, v (B, S, KVH, hd)
+//   paged  (tbl[b][j / BS]*BS + j % BS) * KVH*hd      pools (P, BS, KVH, hd)
+// The paged block reads its row's block table into shared memory once;
+// everything else (online softmax, lane groups, shuffles, merge) is the
+// same code, so with NB*BS == S and identity tables the paged kernel does
+// the dense kernel's arithmetic in the same order and its output equals
+// the dense kernel's bit for bit.
 //
 //   q      (B, H, hd)        f32 or bf16
-//   k, v   (B, S, KVH, hd)   same dtype as q
 //   kv_len (B,) int32        positions >= kv_len[b] are masked
+//   tables (B, NB) int32     paged only; entries >= P are sentinels, clamped
+//                            to P-1 and never read (they lie past kv_len)
 //   out    (B, H, hd)        q's dtype; scores, softmax and sums in f32
 //
 // What bounds it: memory.  A call reads 2 * sum(kv_len) * KVH * hd cache
 // elements and does about 4 * H * hd flops per cached position, i.e. about
 // rep flops per byte read, far below the ~295 flops/byte at which the H100
 // turns compute-bound.  For qwen3-4b (KVH 8, hd 128, bf16) with 8 slots
-// averaging 400 positions that is ~13 MB a layer, ~4 us at 3.35 TB/s.
+// averaging 400 positions that is ~13 MB a layer, ~4 us at 3.35 TB/s.  The
+// paged form adds the row's used table entries (4 bytes per BS positions).
 //
 // Design: one thread block per (b, kv_head).  Its `rep` query rows stay in
 // registers; the block loops over the cache only up to kv_len[b] (the TPU
@@ -27,10 +42,12 @@
 // groups' (m, l, acc) states are merged once at the end, in group order,
 // through shared memory.  No atomics: the reduction order depends only on
 // kv_len[b], so a row's result does not depend on the rest of the batch.
+// Any block size works for the paged form: every position computes its own
+// address, and a page boundary is no boundary for the loop.
 //
 // Known limit: the grid is B * KVH blocks (64 at 8 slots of qwen3-4b), which
-// leaves most of the 132 SMs idle; splitting the KV axis across blocks is
-// later work.
+// leaves most of the 132 SMs idle; splitting the KV axis across blocks, and
+// cp.async/TMA page loads, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,6 +57,19 @@
 namespace {
 
 constexpr int kThreads = 128;
+// Most block-table entries one row may have: the table lives in dynamic
+// shared memory beside the (<= 34 KB) static merge buffers, under 48 KB.
+constexpr int kMaxTableBlocks = 2048;
+
+// Where a row's cache positions live.  Dense: nb = 0, span = S.  Paged:
+// tables (B, nb) int32 into a pool of `pages` blocks of `bs` positions.
+struct Layout {
+  const int* tables;
+  int span;   // positions a row can hold: S, or nb * bs
+  int nb;
+  int bs;
+  int pages;
+};
 
 template <typename T>
 struct Pack;  // elements of T in one 16-byte load
@@ -78,13 +108,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // REP is `rep` rounded up to a power of two; rows r >= rep are zero
-// queries whose results are never written.
-template <typename T, int HD, int REP>
+// queries whose results are never written.  PAGED picks the row address.
+template <typename T, int HD, int REP, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const int* __restrict__ kv_len,
-                            T* __restrict__ out, int S, int KVH, int rep) {
+                            T* __restrict__ out, Layout lay, int KVH,
+                            int rep) {
   constexpr int P = Pack<T>::N;        // elements per lane per cache row
   constexpr int G = HD / P;            // lanes sharing one cache row
   constexpr int NG = kThreads / G;     // lane groups in the block
@@ -97,6 +128,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sm_m[NG][REP];
   __shared__ float sm_l[NG][REP];
   __shared__ float sm_acc[NG][REP][HD];
+  extern __shared__ int sm_tbl[];      // paged: this row's block table
 
   const int b = blockIdx.x / KVH;
   const int g = blockIdx.x % KVH;
@@ -104,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
   const int grp = threadIdx.x / G;
   const int d0 = lane * P;
   const int H = KVH * rep;
-  const int len = max(0, min(kv_len[b], S));
+  const int len = max(0, min(kv_len[b], lay.span));
   const float sqrt_hd = sqrtf(static_cast<float>(HD));
 
   float qr[REP][P];
@@ -131,9 +163,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const size_t row = static_cast<size_t>(KVH) * HD;  // stride of a position
-  const size_t head0 = (static_cast<size_t>(b) * S * KVH + g) * HD + d0;
-  const T* kp = k + head0;
-  const T* vp = v + head0;
+  const T* kp = k + g * HD + d0;
+  const T* vp = v + g * HD + d0;
+  if constexpr (PAGED) {
+    // only the blocks that hold valid positions are read; sentinels clamp
+    const int used = (len + lay.bs - 1) / lay.bs;
+    const int* tbl = lay.tables + static_cast<size_t>(b) * lay.nb;
+    for (int i = threadIdx.x; i < used; i += kThreads) {
+      sm_tbl[i] = min(max(tbl[i], 0), lay.pages - 1);
+    }
+    __syncthreads();
+  }
+  // cache position j of row b, in units of `row` elements
+  auto position = [&](int j) -> size_t {
+    if constexpr (PAGED) {
+      return static_cast<size_t>(sm_tbl[j / lay.bs]) * lay.bs + j % lay.bs;
+    } else {
+      return static_cast<size_t>(b) * lay.span + j;
+    }
+  };
 
   // `base` is uniform across the block, so every lane reaches the shuffles.
   for (int base = 0; base < len; base += STEP) {
@@ -143,8 +191,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < KPS; ++u) {
       const int j = j0 + u;
       if (j < len) {
-        load_pack(kp + j * row, kf[u]);
-        load_pack(vp + j * row, vf[u]);
+        const size_t at = position(j) * row;
+        load_pack(kp + at, kf[u]);
+        load_pack(vp + at, vf[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < P; ++e) kf[u][e] = vf[u][e] = 0.f;
@@ -234,72 +283,103 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAGED>
 cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* kv_len,
-                      T* out, int B, int S, int KVH, int rep,
+                      T* out, int B, const Layout& lay, int KVH, int rep,
                       cudaStream_t stream) {
   const dim3 grid(B * KVH);
+  const size_t smem = PAGED ? sizeof(int) * lay.nb : 0;
   if (rep == 1) {
-    decode_attention_kernel<T, HD, 1>
-        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+    decode_attention_kernel<T, HD, 1, PAGED>
+        <<<grid, kThreads, smem, stream>>>(q, k, v, kv_len, out, lay, KVH,
+                                           rep);
   } else if (rep == 2) {
-    decode_attention_kernel<T, HD, 2>
-        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+    decode_attention_kernel<T, HD, 2, PAGED>
+        <<<grid, kThreads, smem, stream>>>(q, k, v, kv_len, out, lay, KVH,
+                                           rep);
   } else if (rep <= 4) {
-    decode_attention_kernel<T, HD, 4>
-        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+    decode_attention_kernel<T, HD, 4, PAGED>
+        <<<grid, kThreads, smem, stream>>>(q, k, v, kv_len, out, lay, KVH,
+                                           rep);
   } else if (rep <= 8) {
-    decode_attention_kernel<T, HD, 8>
-        <<<grid, kThreads, 0, stream>>>(q, k, v, kv_len, out, S, KVH, rep);
+    decode_attention_kernel<T, HD, 8, PAGED>
+        <<<grid, kThreads, smem, stream>>>(q, k, v, kv_len, out, lay, KVH,
+                                           rep);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
-                     const int* kv_len, void* out, int B, int S, int KVH,
-                     int rep, int hd, cudaStream_t stream) {
+                     const int* kv_len, void* out, int B, const Layout& lay,
+                     int KVH, int rep, int hd, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   switch (hd) {
     case 32:
-      return launch_hd<T, 32>(qt, kt, vt, kv_len, ot, B, S, KVH, rep, stream);
+      return launch_hd<T, 32, PAGED>(qt, kt, vt, kv_len, ot, B, lay, KVH, rep,
+                                     stream);
     case 64:
-      return launch_hd<T, 64>(qt, kt, vt, kv_len, ot, B, S, KVH, rep, stream);
+      return launch_hd<T, 64, PAGED>(qt, kt, vt, kv_len, ot, B, lay, KVH, rep,
+                                     stream);
     case 128:
-      return launch_hd<T, 128>(qt, kt, vt, kv_len, ot, B, S, KVH, rep,
-                               stream);
+      return launch_hd<T, 128, PAGED>(qt, kt, vt, kv_len, ot, B, lay, KVH,
+                                      rep, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the CUDA error of the launch (0 = cudaSuccess).
-extern "C" int decode_attention_launch(const void* q, const void* k,
-                                       const void* v, const void* kv_len,
-                                       void* out, int B, int S, int H,
-                                       int KVH, int hd, int dtype,
-                                       void* stream) {
-  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0) {
+template <bool PAGED>
+int launch(const void* q, const void* k, const void* v, const void* kv_len,
+           void* out, int B, int H, int KVH, int hd, int dtype,
+           const Layout& lay, void* stream) {
+  if (B <= 0 || KVH <= 0 || H % KVH != 0 || lay.span <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rep = H / KVH;
   const int* lens = static_cast<const int*>(kv_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return static_cast<int>(
-        launch_t<float>(q, k, v, lens, out, B, S, KVH, rep, hd, st));
+    return static_cast<int>(launch_t<float, PAGED>(q, k, v, lens, out, B,
+                                                   lay, KVH, rep, hd, st));
   }
   if (dtype == 1) {
-    return static_cast<int>(
-        launch_t<__nv_bfloat16>(q, k, v, lens, out, B, S, KVH, rep, hd, st));
+    return static_cast<int>(launch_t<__nv_bfloat16, PAGED>(
+        q, k, v, lens, out, B, lay, KVH, rep, hd, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Each returns the CUDA error of the launch (0 = cudaSuccess).
+
+// k, v (B, S, KVH, hd)
+extern "C" int decode_attention_launch(const void* q, const void* k,
+                                       const void* v, const void* kv_len,
+                                       void* out, int B, int S, int H,
+                                       int KVH, int hd, int dtype,
+                                       void* stream) {
+  const Layout lay{nullptr, S, 0, 0, 0};
+  return launch<false>(q, k, v, kv_len, out, B, H, KVH, hd, dtype, lay,
+                       stream);
+}
+
+// k_pages, v_pages (P, BS, KVH, hd); tables (B, NB) int32
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* kv_len, void* out, int B, int H, int KVH,
+    int hd, int P, int BS, int NB, int dtype, void* stream) {
+  if (P <= 0 || BS <= 0 || NB <= 0 || NB > kMaxTableBlocks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Layout lay{static_cast<const int*>(tables), NB * BS, NB, BS, P};
+  return launch<true>(q, k_pages, v_pages, kv_len, out, B, H, KVH, hd, dtype,
+                      lay, stream);
 }

@@ -1,7 +1,9 @@
-"""Plain PyTorch version: single-token GQA attention over a padded KV cache.
+"""Plain PyTorch versions: single-token GQA attention over a padded KV
+cache, and over a paged block pool.
 
-Counterpart of ``repro/kernels/decode_attention/ref.py``; the oracle the
-CUDA kernel is held against on the card, and the CPU path of the wrapper.
+Counterpart of ``repro/kernels/decode_attention/ref.py``; the oracles the
+CUDA kernel's two entry points are held against on the card, and the CPU
+paths of the wrappers.
 """
 from __future__ import annotations
 
@@ -28,3 +30,29 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", p, v.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def gather_paged_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                    tables: torch.Tensor):
+    """Materialise each row's logical cache from the block pool.
+
+    k/v_pages: (P, BS, KVH, hd) pools; tables: (B, NB) int32 block tables
+    (entries >= P are unallocated sentinels: clamped, then masked by
+    ``kv_len`` downstream).  Returns dense (B, NB*BS, KVH, hd) copies."""
+    p, bs, kvh, hd = k_pages.shape
+    b, nb = tables.shape
+    tbl = tables.long().clamp(max=p - 1)
+    k = k_pages[tbl].reshape(b, nb * bs, kvh, hd)
+    v = v_pages[tbl].reshape(b, nb * bs, kvh, hd)
+    return k, v
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, tables: torch.Tensor,
+                               kv_len: torch.Tensor) -> torch.Tensor:
+    """Dense-gather version of paged decode attention: q (B, H, hd);
+    k/v_pages (P, BS, KVH, hd); tables (B, NB); kv_len (B,).  With
+    ``NB*BS`` equal to a dense cache's S and identity tables it is
+    :func:`decode_attention_ref` on the same numbers, bit for bit."""
+    k, v = gather_paged_kv(k_pages, v_pages, tables)
+    return decode_attention_ref(q, k, v, kv_len)

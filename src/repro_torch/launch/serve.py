@@ -1,18 +1,22 @@
-"""Serving launcher: wave-batched baseline + the continuous-batching engine.
+"""Serving launcher: wave-batched baseline, the continuous-batching engine
+and the replicated router.
 
 Counterpart of ``repro/launch/serve.py``.  :class:`BatchedServer` is the
 wave-barrier loop kept as the serving baseline: requests are packed into
 waves, every slot decodes until the whole wave finishes, then the next wave
 is admitted.  The production path is :class:`ServeEngine` (continuous
-admission, bucketed prefill, no wave barrier).  Both run on the card unless
-``--device cpu`` is given:
+admission, bucketed prefill, no wave barrier), alone (``--engine``) or as
+replicas behind :class:`ReplicaRouter` (``--router``); ``--paged`` gives
+either a paged KV cache.  Everything runs on the card unless ``--device
+cpu`` is given:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
-      --no-reduced --engine
+      --no-reduced --engine --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+      --no-reduced --router --paged
 
 ``--reduced`` (the default) serves the same-family smoke config;
-``--no-reduced`` serves the published widths in the config's dtype.  The
-router and the paged KV cache are not yet ported and raise.
+``--no-reduced`` serves the published widths in the config's dtype.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.configs import ALL_ARCHS, get_config, reduced_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import EngineConfig, ServeEngine, ServeRequest
+from repro_torch.serve.router import ReplicaRouter, RouterConfig
 
 
 class BatchedServer:
@@ -133,16 +138,24 @@ def main(argv=None) -> None:
                     help="use the continuous-batching ServeEngine instead "
                          "of the wave-barrier baseline")
     ap.add_argument("--router", action="store_true",
-                    help="replicated router: not yet ported")
+                    help="front ServeEngine replicas with the ReplicaRouter "
+                         "(health checks, failover, shedding, hedging)")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="replica count for --router (device-affine across "
+                         "the CUDA devices when more than one is present)")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache: not yet ported")
+                    help="paged KV cache: admit on free pool blocks instead "
+                         "of worst-case dense slots; applies to --engine "
+                         "and --router")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV-cache block for --paged")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="pool size in blocks for --paged (default: worst "
+                         "case, slots * cache_len / block_size)")
     args = ap.parse_args(argv)
-    if args.router:
-        raise NotImplementedError("--router is not yet ported (ROADMAP.md "
-                                  "queue 1: the router slice)")
-    if args.paged and not args.engine:
-        ap.error("--paged needs --engine (the wave-barrier baseline is "
-                 "dense-only)")
+    if args.paged and not (args.engine or args.router):
+        ap.error("--paged needs --engine or --router (the wave-barrier "
+                 "baseline is dense-only)")
 
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -155,10 +168,21 @@ def main(argv=None) -> None:
                          max_new=args.max_new)
             for i in range(args.requests)]
     t0 = time.time()
-    if args.engine:
-        engine = ServeEngine(bundle, params, EngineConfig(
-            slots=args.slots, cache_len=64, pad_to=8, paged=args.paged),
-            device=device)
+    ecfg = EngineConfig(slots=args.slots, cache_len=64,
+                        pad_to=8 if bundle.prefill_pads else 1,
+                        paged=args.paged, block_size=args.block_size,
+                        n_blocks=args.blocks)
+    if args.router:
+        devices = [device]
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        router = ReplicaRouter(bundle, params, RouterConfig(
+            replicas=args.replicas, engine=ecfg), devices=devices)
+        done = router.run(reqs)
+        print(f"router stats: {router.stats}")
+    elif args.engine:
+        engine = ServeEngine(bundle, params, ecfg, device=device)
         done = engine.run(reqs)
         print(f"engine stats: {engine.stats()}")
     else:

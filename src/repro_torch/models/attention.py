@@ -3,14 +3,15 @@
 Counterpart of ``repro/models/attention.py`` for the dense LM family:
 grouped KV heads (GQA/MQA), qk-norm (qwen3), QKV bias (qwen2) and plain
 RoPE.  Prefill and training run :func:`chunked_attention` in plain
-PyTorch, as the reference runs its jnp path there.  Both decode paths,
-the engine's slotted step and the scalar step of its oracle, go through
-one attention implementation, ``kernels/decode_attention``: the
-hand-written CUDA kernel for CUDA tensors, its plain version on the CPU.
+PyTorch, as the reference runs its jnp path there.  Every decode path, the
+engine's slotted and paged steps and the scalar step of its oracle, goes
+through ``kernels/decode_attention``: the hand-written CUDA kernel for
+CUDA tensors, its plain version on the CPU.
 
-Decode writes the new K/V row into the cache *in place* (the reference's
-``dynamic_update_slice`` returns a new array); the functions still return
-the caches so call sites read like the reference's.
+Decode writes the new K/V row into the cache or pool *in place* (the
+reference's ``dynamic_update_slice`` and ``.at[].set`` return new arrays);
+the functions still return the caches so call sites read like the
+reference's.
 """
 from __future__ import annotations
 
@@ -20,7 +21,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    paged_decode_attention,
+)
 from repro_torch.models.common import apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
@@ -199,7 +203,8 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
                       positions: Optional[torch.Tensor] = None,
                       use_rope: bool = True):
     """Prefill: returns (out, (k_cache, v_cache)) with caches padded to
-    ``cache_len`` so decode can write in place."""
+    ``cache_len`` so decode can write in place (no pad, and no copy, when
+    ``cache_len`` is the prompt length, as for the paged engine)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
@@ -208,8 +213,8 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
         q, k = _rotate(q, k, positions, cfg)
     out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     pad = cache_len - s
-    kc = F.pad(k, (0, 0, 0, 0, 0, pad))
-    vc = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kc = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
+    vc = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
     y = out.reshape(b, s, -1) @ p["o"].to(x.dtype)
     return y, (kc, vc)
 
@@ -270,3 +275,57 @@ def attention_decode_slotted(
     out = decode_attention(q[:, 0], k_cache, v_cache, lens + 1)[:, None]
     y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
     return y, k_cache, v_cache
+
+
+def paged_write_index(lens: torch.Tensor, tables: torch.Tensor,
+                      active: torch.Tensor, block_size: int, n_blocks: int):
+    """Where one decode step's new K/V rows go in the pool: the same for
+    every layer, so a step computes it once.
+
+    Row b writes logical position ``pos_w = min(lens[b], NB*BS - 1)``, the
+    reference's clamp, to block ``tables[b, pos_w // BS]`` at offset
+    ``pos_w % BS``.  Inactive rows must not touch the pool at all: a freed
+    block may already belong to another slot.  The reference drops their
+    write (and any write to a sentinel block) with ``mode="drop"``; torch
+    has none, so only the rows that are active and hold a real block are
+    kept (one host sync, for ``nonzero``).  Never clamp a sentinel into
+    the pool.  Returns ``(rows, blk, off)``, each ``(n,)`` int64."""
+    span = tables.shape[1] * block_size
+    pos_w = lens.clamp(max=span - 1).long()
+    blk = tables.gather(1, (pos_w // block_size)[:, None])[:, 0].long()
+    rows = torch.nonzero(active & (blk < n_blocks)).squeeze(1)
+    return rows, blk[rows], (pos_w % block_size)[rows]
+
+
+def attention_decode_paged(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                # (B, 1, D)
+    k_pool: torch.Tensor,           # (P, BS, KVH, hd), updated in place
+    v_pool: torch.Tensor,
+    lens: torch.Tensor,             # (B,) int32: per-slot current lengths
+    tables: torch.Tensor,           # (B, NB) int32 block tables
+    write,                          # paged_write_index(...) of this step
+    cfg: ModelConfig,
+    use_rope: bool = True,
+):
+    """One decode step against a paged (block-pool) KV cache.
+
+    Per-row arithmetic as :func:`attention_decode_slotted`, but K/V live
+    in a pool of fixed-size blocks addressed through each slot's block
+    table.  The new K/V rows go where ``write`` (from
+    :func:`paged_write_index`) says; attention runs the paged
+    decode-attention kernel over the pool with ``kv_len = lens + 1``.
+    Returns (out, k_pool, v_pool); the pools are the inputs, written in
+    place.
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        q, k = _rotate(q, k, lens[:, None], cfg)
+    rows, blk, off = write
+    k_pool.index_put_((blk, off), k[rows, 0])
+    v_pool.index_put_((blk, off), v[rows, 0])
+    out = paged_decode_attention(q[:, 0], k_pool, v_pool, tables,
+                                 lens + 1)[:, None]
+    y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
+    return y, k_pool, v_pool

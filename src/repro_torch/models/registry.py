@@ -9,9 +9,9 @@ serving path reads.  Family dispatch happens once, here.
 * ``decode_step(params, cache, batch) -> (logits, cache)``
 * ``make_cache(batch, cache_len, device)`` / ``make_slot_cache(...)``
 * ``prefill_slotted`` / ``decode_slotted`` — per-slot lengths (serving)
-
-The paged fields stay ``None`` until the paged slice (ROADMAP.md, queue 1)
-ports them.
+* ``prefill_paged`` / ``decode_paged`` / ``make_paged_cache(slots,
+  cache_len, n_blocks, block_size, device)`` / ``paged_cache_specs`` — the
+  paged KV cache (a block pool shared by every slot)
 """
 from __future__ import annotations
 
@@ -45,6 +45,9 @@ class ModelBundle:
                                       Tuple[torch.Tensor, Any]]] = None
     make_slot_cache: Optional[Callable[..., Any]] = None
     prefill_pads: bool = False
+    # paged serving path: ``prefill_paged(params, {"tokens", "lens"})``
+    # returns unpadded K/V rows; ``decode_paged(params, cache, {"tokens",
+    # "active"})`` reads and writes the block pool through cache["tables"]
     prefill_paged: Optional[Callable] = None
     decode_paged: Optional[Callable] = None
     make_paged_cache: Optional[Callable] = None
@@ -73,6 +76,19 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
         return M_lm.lm_decode_step_slotted(params, cache, batch["tokens"],
                                            batch["active"], cfg)
 
+    def prefill_paged(params, batch):
+        return M_lm.lm_prefill_paged(params, cfg, tokens=batch["tokens"],
+                                     lens=batch["lens"])
+
+    def decode_paged(params, cache, batch):
+        return M_lm.lm_decode_step_paged(params, cache, batch["tokens"],
+                                         batch["active"], cfg)
+
+    def make_paged_cache(slots, cache_len, n_blocks, block_size,
+                         device=None):
+        return M_lm.init_paged_cache(cfg, slots, cache_len, n_blocks,
+                                     block_size, device=device)
+
     return ModelBundle(
         cfg=cfg,
         init=lambda seed=0, device=None: M_lm.init_lm(seed, cfg, device),
@@ -87,6 +103,10 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
         make_slot_cache=lambda b, s, device=None: M_lm.init_slot_cache(
             cfg, b, s, device=device),
         prefill_pads=True,
+        prefill_paged=prefill_paged,
+        decode_paged=decode_paged,
+        make_paged_cache=make_paged_cache,
+        paged_cache_specs=lambda: M_lm.paged_cache_specs(cfg),
     )
 
 

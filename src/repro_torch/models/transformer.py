@@ -9,8 +9,9 @@ layer's slice of it in place.  The reference's ``logical_constraint``
 sharding hints do nothing on one device and are dropped.
 
 Entry points: ``lm_forward`` (training), ``lm_prefill`` / ``lm_decode_step``
-(one shared length) and their ``_slotted`` forms (per-slot lengths, the
-serving engine's path).
+(one shared length), their ``_slotted`` forms (per-slot lengths, the
+serving engine's dense path) and their ``_paged`` forms (a block pool
+shared by every slot, the paged engine's path).
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models.attention import (
     attention_block,
     attention_decode,
+    attention_decode_paged,
     attention_decode_slotted,
     attention_prefill,
     init_attention,
+    paged_write_index,
 )
 from repro_torch.models.common import (
     apply_norm,
@@ -245,6 +248,78 @@ def lm_decode_step_slotted(params: Dict[str, Any], cache: Dict[str, Any],
     x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"],
+                    "lens": lens + active.to(torch.int32)}
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, cache_len: int,
+                     n_blocks: int, block_size: int,
+                     dtype: Optional[torch.dtype] = None,
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    """Paged cache layout: a pool of fixed-size KV blocks shared by every
+    slot, plus per-slot block tables.
+
+    ``k``/``v``: (layers, n_blocks, block_size, KVH, hd) pools, zeroed so
+    unwritten positions hold finite values, and written in place by decode;
+    ``tables``: (slots, cache_len // block_size) int32, the sentinel
+    ``n_blocks`` marking unallocated entries; ``lens``: per-slot lengths."""
+    if cache_len % block_size:
+        raise ValueError(f"cache_len {cache_len} is not a multiple of "
+                         f"block_size {block_size}")
+    dtype = dtype or torch_dtype(cfg.dtype)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "lens": torch.zeros((slots,), dtype=torch.int32, device=dev),
+        "tables": torch.full((slots, cache_len // block_size), n_blocks,
+                             dtype=torch.int32, device=dev),
+    }
+
+
+def paged_cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Axis names of the paged cache: leaves with a "blocks" axis live in
+    the pool (spliced block/offset-wise); "batch" leaves are per slot."""
+    kv = ("layers", "blocks", "block", "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "lens": ("batch",), "tables": ("batch", None)}
+
+
+def lm_prefill_paged(params: Dict[str, Any], cfg: ModelConfig, *,
+                     tokens: torch.Tensor,   # (B, L) right-padded prompts
+                     lens: torch.Tensor      # (B,) true lengths (<= L)
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Bucket prefill for the paged engine: the slotted prefill's forward,
+    with the K/V rows returned *unpadded* (``cache_len = L``) for the
+    engine to scatter into pool blocks."""
+    return lm_prefill_slotted(params, cfg, tokens=tokens, lens=lens,
+                              cache_len=tokens.shape[1])
+
+
+def lm_decode_step_paged(params: Dict[str, Any], cache: Dict[str, Any],
+                         tokens: torch.Tensor,   # (B, 1)
+                         active: torch.Tensor,   # (B,) bool
+                         cfg: ModelConfig
+                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step over every slot against the block pool: as
+    :func:`lm_decode_step_slotted`, but K/V go through each slot's block
+    table, and inactive rows never write the pool (their blocks may have
+    been reassigned).  Where the step writes is the same for every layer
+    and computed once.  Layer ``i``'s pools are ``cache["k"][i]``, a
+    contiguous slice, written in place."""
+    check_family(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    lens, tables = cache["lens"], cache["tables"]
+    write = paged_write_index(lens, tables, active, cache["k"].shape[2],
+                              cache["k"].shape[1])
+    for i, lp in enumerate(params["layers"]):
+        a, _, _ = attention_decode_paged(
+            lp["attn"], _attn_in(lp, x, cfg), cache["k"][i], cache["v"][i],
+            lens, tables, write, cfg)
+        x = _mlp_residual(lp, x + a, cfg)
+    x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params, x, cfg)[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "tables": tables,
                     "lens": lens + active.to(torch.int32)}
 
 

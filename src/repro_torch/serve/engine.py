@@ -6,12 +6,21 @@ barrier), prefill runs in padding-bucketed batches (serve/buckets.py), and
 decode is ONE step over all slots per iteration — every batch row is a
 slot at its own sequence position (``cache["lens"]``), so mixed prompt and
 output lengths coexist in flight.  On CUDA every decode step runs the
-hand-written decode-attention kernel once per layer.
+hand-written decode-attention kernel once per layer: the dense kernel over
+slot caches, or, with ``EngineConfig(paged=True)``, the paged kernel over a
+block pool.
 
 The cache lives on the engine's device and is updated *in place*: prefill
-rows are copied into their slots with ``index_copy_`` and decode writes
-each new K/V row into the slot's cache (the reference rebuilds immutable
-arrays instead).
+rows are copied into their slots (or their pool blocks) with
+``index_copy_`` / ``index_put_``, and decode writes each new K/V row into
+the slot's cache (the reference rebuilds immutable arrays instead).
+
+Paged KV cache (``EngineConfig(paged=True)``, as the reference's DESIGN.md
+§15): requests are admitted on free *blocks* of a shared pool
+(serve/paged.py) instead of worst-case dense slots, in strict FCFS order;
+each decode step first grows every active slot's table to cover its next
+write, and a dry pool sheds the youngest starved admission explicitly
+(``oom`` flag, partial output kept, ``shed_blocks`` counted).
 
 Greedy decode through the engine matches the scalar one-request reference
 (:func:`greedy_reference`) token for token: every model op on the batch
@@ -21,9 +30,10 @@ Failure semantics, as the reference: ``deadline_s`` expiry reclaims the
 slot and returns the partial output flagged ``expired``;
 ``EngineConfig.max_queue`` bounds the admission queue and a submit over it
 is rejected explicitly; :meth:`ServeEngine.drain` completes in-flight work
-without admitting more.  The paged cache (``EngineConfig(paged=True)``)
-and the fault-injection hook raise ``NotImplementedError`` until their
-slices land (ROADMAP.md, queue 1).
+without admitting more.  A :class:`~repro_torch.core.faults.FaultPlan`
+given as ``faults=`` is consulted at ``serve.decode`` once a tick: a
+``stall`` or ``hang`` there adds its ``hang_s`` to the caller's virtual
+clock (or sleeps it, in real time).
 """
 from __future__ import annotations
 
@@ -34,8 +44,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.faults import FaultPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.buckets import build_buckets
+from repro_torch.serve.paged import BlockPool
 
 
 @dataclasses.dataclass
@@ -52,6 +64,9 @@ class ServeRequest:
     done: bool = False
     expired: bool = False          # deadline ran out (out = partial tokens)
     rejected: bool = False         # bounced off a full admission queue
+    oom: bool = False              # shed by the paged engine when the block
+    #   pool ran dry mid-decode (out = partial tokens, prefix of reference)
+    blocks_held: int = 0           # peak cache blocks held (paged engine)
     # measured lifecycle (seconds from the run's t0)
     t_arrival: float = 0.0
     t_admit: float = 0.0
@@ -75,23 +90,23 @@ class EngineConfig:
     max_prefill_batch: int = 8     # rows per prefill dispatch
     max_queue: Optional[int] = None  # admission-queue bound: a submit over
     #   it is rejected explicitly (backpressure).  None = unbounded
-    paged: bool = False            # paged KV cache: not yet ported
+    # paged KV cache: admit on free *blocks* instead of worst-case dense
+    # slots.  ``n_blocks=None`` sizes the pool for the worst case (slots *
+    # cache_len / block_size: never sheds); a smaller pool trades capacity
+    # for memory, with explicit OOM shedding.
+    paged: bool = False
+    block_size: int = 16           # tokens per cache block
+    n_blocks: Optional[int] = None  # pool size; None = worst case
 
 
 class ServeEngine:
     """Slot-cache continuous batching over a ModelBundle's slotted path."""
 
     def __init__(self, bundle, params, config: Optional[EngineConfig] = None,
-                 faults: Any = None, device: DeviceLike = None):
+                 faults: Optional[FaultPlan] = None,
+                 device: DeviceLike = None):
         cfg = config or EngineConfig()
-        if faults is not None:
-            raise NotImplementedError(
-                "the serve.decode fault hook is not yet ported (ROADMAP.md "
-                "queue 1: the fault harness moves with the router)")
-        if cfg.paged:
-            raise NotImplementedError(
-                "EngineConfig(paged=True) is not yet ported (ROADMAP.md "
-                "queue 1: the paged KV-cache slice)")
+        self.faults = faults  # "serve.decode" inject point
         if bundle.decode_slotted is None or bundle.prefill_slotted is None:
             raise ValueError(
                 f"family {bundle.cfg.family!r} has no slotted serving path")
@@ -109,14 +124,41 @@ class ServeEngine:
         self.cfg = cfg
         self._specs = {k: v for k, v in bundle.cache_specs().items()
                        if k != "len"}
+        self.paged = cfg.paged
+        self.pool: Optional[BlockPool] = None
+        if cfg.paged:
+            if (bundle.decode_paged is None or bundle.prefill_paged is None
+                    or bundle.make_paged_cache is None):
+                raise ValueError(f"family {bundle.cfg.family!r} has no "
+                                 f"paged serving path")
+            if cfg.cache_len % cfg.block_size:
+                raise ValueError(
+                    f"cache_len {cfg.cache_len} is not a multiple of "
+                    f"block_size {cfg.block_size}")
+            max_blocks = cfg.cache_len // cfg.block_size
+            n_blocks = cfg.n_blocks or cfg.slots * max_blocks
+            self.pool = BlockPool(n_blocks, cfg.block_size, cfg.slots,
+                                  max_blocks)
+            # pool-resident leaves are spliced block/offset-wise
+            self._pool_specs = {k: v for k, v in
+                                bundle.paged_cache_specs().items()
+                                if "blocks" in v}
+            self._tables_dirty = False
         self.reset()
 
     # ------------------------------------------------------------ lifecycle
     def reset(self) -> None:
         """Fresh slot state (the cache is reallocated)."""
         cfg = self.cfg
-        self.cache = self.bundle.make_slot_cache(cfg.slots, cfg.cache_len,
-                                                 device=self.device)
+        if self.paged:
+            self.pool.reset()
+            self.cache = self.bundle.make_paged_cache(
+                cfg.slots, cfg.cache_len, self.pool.n_blocks,
+                cfg.block_size, device=self.device)
+            self._tables_dirty = False
+        else:
+            self.cache = self.bundle.make_slot_cache(
+                cfg.slots, cfg.cache_len, device=self.device)
         self.active: List[Optional[ServeRequest]] = [None] * cfg.slots
         self.last_tok = np.zeros((cfg.slots,), np.int32)
         self.waiting: List[ServeRequest] = []   # arrived, not yet admitted
@@ -124,6 +166,7 @@ class ServeEngine:
         self.rejected: List[ServeRequest] = []  # bounced at admission
         self.decode_steps = 0
         self.prefill_calls = 0
+        self.shed_blocks = 0        # paged OOM sheds (explicit, counted)
         self.peak_concurrency = 0   # max sequences simultaneously in flight
 
     def submit(self, req: ServeRequest) -> bool:
@@ -134,6 +177,14 @@ class ServeEngine:
             raise ValueError(f"request {req.rid}: prompt length "
                              f"{len(req.prompt)} exceeds cache_len "
                              f"{self.cfg.cache_len}")
+        if self.paged:
+            need = self.pool.blocks_for(len(req.prompt))
+            if need > self.pool.n_blocks:
+                # would never fit even an empty pool: reject explicitly
+                # (truncating the prompt would silently change the output)
+                raise ValueError(
+                    f"request {req.rid}: prompt needs {need} cache blocks "
+                    f"but the pool only has {self.pool.n_blocks}")
         if self.cfg.max_queue is not None \
                 and len(self.waiting) >= self.cfg.max_queue:
             req.rejected = True
@@ -150,6 +201,8 @@ class ServeEngine:
         held here."""
         for s, r in enumerate(self.active):
             if r is not None and r.rid == rid:
+                if self.paged:
+                    self._release_blocks(s, r)
                 self.active[s] = None
                 return r
         for i, r in enumerate(self.waiting):
@@ -178,14 +231,74 @@ class ServeEngine:
     def has_work(self) -> bool:
         return bool(self.waiting) or any(r is not None for r in self.active)
 
+    @property
+    def free_blocks(self) -> Optional[int]:
+        """Free cache blocks in the pool (``None`` for a dense engine): the
+        memory-depth signal the router's placement prefers."""
+        return self.pool.free_count if self.paged else None
+
     def stats(self) -> Dict[str, Any]:
-        """Counters for reports: decode steps, prefill dispatches and peak
-        sequences in flight."""
-        return {
+        """Counters for reports: decode steps, prefill dispatches, peak
+        sequences in flight, OOM sheds and, for the paged engine, the
+        block pool's residency."""
+        d: Dict[str, Any] = {
             "decode_steps": self.decode_steps,
             "prefill_calls": self.prefill_calls,
             "peak_concurrency": self.peak_concurrency,
+            "shed_blocks": self.shed_blocks,
         }
+        if self.paged:
+            d.update({
+                "n_blocks": self.pool.n_blocks,
+                "block_size": self.cfg.block_size,
+                "free_blocks": self.pool.free_count,
+                "peak_blocks_used": self.pool.peak_used,
+            })
+        return d
+
+    # ------------------------------------------------------------ block pool
+    def _release_blocks(self, slot: int, req: ServeRequest) -> None:
+        """Return a leaving request's blocks to the pool (records its peak
+        residency first; held counts are monotone until release)."""
+        req.blocks_held = max(req.blocks_held, self.pool.held(slot))
+        if self.pool.free_slot(slot):
+            self._tables_dirty = True
+
+    def _refresh_tables(self) -> None:
+        """Push the allocator's block tables to the device cache whenever
+        allocation changed since the last dispatch."""
+        if self._tables_dirty:
+            self.cache["tables"] = self._tensor(self.pool.table_array())
+            self._tables_dirty = False
+
+    def _grow_blocks(self, now: float) -> None:
+        """Pre-decode growth: every active slot needs the block covering
+        its next write position.  On pool exhaustion, sheds the
+        youngest-admitted starved request (explicit OOM: ``oom`` flag,
+        partial output kept, a prefix of the reference, and the
+        ``shed_blocks`` counter bumped; no silent drops), then retries the
+        remaining starved slots with the freed blocks."""
+        need = []
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            pos = len(req.prompt) + len(req.out) - 1  # next write position
+            need.append((req.t_admit, req.rid, s, pos))
+        need.sort()
+        before = self.pool.allocs
+        pending = need
+        while True:
+            failed = [item for item in pending
+                      if not self.pool.ensure(item[2], item[3])]
+            if not failed:
+                break
+            s = failed[-1][2]   # youngest admission among the starved
+            self.active[s].oom = True
+            self._finish(s, self.active[s], now)
+            self.shed_blocks += 1
+            pending = failed[:-1]
+        if self.pool.allocs != before:
+            self._tables_dirty = True
 
     # ------------------------------------------------------------ admission
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -208,6 +321,65 @@ class ServeEngine:
         self.cache["lens"].index_copy_(0, dst,
                                        cache1["lens"].index_select(0, src))
 
+    def _splice_paged(self, rows: Dict[str, Any], slot_idx: np.ndarray,
+                      blk: np.ndarray, off: np.ndarray) -> None:
+        """Scatter prefill rows into the block pool, in place: row r,
+        position p goes to block ``blk[r, p]`` at offset ``off[r, p]``.
+        Pad rows and pad-tail positions carry the sentinel block, which the
+        reference drops with ``mode="drop"``; here they are selected away
+        before ``index_put_``, as :meth:`_splice` does with pad rows."""
+        r_idx, p_idx = np.nonzero(blk < self.pool.n_blocks)
+        src = (self._tensor(r_idx), self._tensor(p_idx))
+        dst = (self._tensor(blk[r_idx, p_idx].astype(np.int64)),
+               self._tensor(off[r_idx, p_idx].astype(np.int64)))
+        for key, spec in self._pool_specs.items():
+            ax = spec.index("blocks")
+            lead = (slice(None),) * ax
+            self.cache[key][lead + dst] = rows[key][lead + src]
+        keep = np.flatnonzero(slot_idx < self.cfg.slots)
+        self.cache["lens"].index_copy_(
+            0, self._tensor(slot_idx[keep].astype(np.int64)),
+            rows["lens"].index_select(0, self._tensor(keep)))
+
+    def _block_offsets(self, b):
+        """(B, L) block / offset index arrays for a prefill bucket: row r,
+        position p lands in ``table[slot_r][p // bs]`` at offset
+        ``p % bs``; pad rows and pad-tail positions get the sentinel
+        block."""
+        bp, L = b.tokens.shape
+        bs = self.cfg.block_size
+        pos = np.arange(L)
+        blk = np.full((bp, L), self.pool.n_blocks, np.int32)
+        off = np.tile((pos % bs).astype(np.int32), (bp, 1))
+        for row in range(len(b.rows)):
+            slot = int(b.slot_idx[row])
+            ln = int(b.lens[row])
+            table = np.asarray(self.pool.slot_blocks(slot), np.int32)
+            blk[row, :ln] = table[pos[:ln] // bs]
+        return blk, off
+
+    def _take_paged(self, free: List[int]):
+        """Strict-FCFS block admission: admit while *blocks* are available,
+        not worst-case slots.  The first waiting request whose prompt does
+        not fit blocks the line (no length-based overtaking, so paged
+        admission order matches dense admission order exactly)."""
+        reqs: List[ServeRequest] = []
+        slots: List[int] = []
+        for req in self.waiting:
+            if len(reqs) >= len(free):
+                break
+            need = self.pool.blocks_for(len(req.prompt))
+            if not self.pool.can_alloc(need):
+                break
+            slot = free[len(reqs)]
+            self.pool.alloc(slot, need)
+            reqs.append(req)
+            slots.append(slot)
+        del self.waiting[:len(reqs)]
+        if reqs:
+            self._tables_dirty = True
+        return reqs, slots
+
     def _admit(self, now: float) -> int:
         """Fill free slots from the waiting queue (FCFS), one bucketed
         prefill dispatch per padded prompt length.  Returns the number of
@@ -215,19 +387,30 @@ class ServeEngine:
         free = [s for s, r in enumerate(self.active) if r is None]
         if not free or not self.waiting:
             return 0
-        take = min(len(free), len(self.waiting))
-        reqs = self.waiting[:take]
-        del self.waiting[:take]
-        slots = free[:take]
+        if self.paged:
+            reqs, slots = self._take_paged(free)
+            if not reqs:
+                return 0
+        else:
+            take = min(len(free), len(self.waiting))
+            reqs = self.waiting[:take]
+            del self.waiting[:take]
+            slots = free[:take]
         buckets = build_buckets([r.prompt for r in reqs], slots,
                                 self.cfg.slots, pad_to=self.cfg.pad_to,
                                 max_batch=self.cfg.max_prefill_batch)
         for b in buckets:
-            logits, cache1 = self.bundle.prefill_slotted(
-                self.params, {"tokens": self._tensor(b.tokens),
-                              "lens": self._tensor(b.lens),
-                              "cache_len": self.cfg.cache_len})
-            self._splice(cache1, b.slot_idx)
+            tokens, lens = self._tensor(b.tokens), self._tensor(b.lens)
+            if self.paged:
+                self._refresh_tables()
+                logits, rows = self.bundle.prefill_paged(
+                    self.params, {"tokens": tokens, "lens": lens})
+                self._splice_paged(rows, b.slot_idx, *self._block_offsets(b))
+            else:
+                logits, cache1 = self.bundle.prefill_slotted(
+                    self.params, {"tokens": tokens, "lens": lens,
+                                  "cache_len": self.cfg.cache_len})
+                self._splice(cache1, b.slot_idx)
             self.prefill_calls += 1
             first = torch.argmax(logits, dim=-1).cpu().numpy()
             for row, i in enumerate(b.rows):
@@ -241,8 +424,12 @@ class ServeEngine:
         return len(reqs)
 
     def _finish(self, slot: int, req: ServeRequest, now: float) -> None:
+        """Record a leaving in-flight request and free its slot (and, when
+        paged, its blocks)."""
         req.done = True
         req.t_done = now
+        if self.paged:
+            self._release_blocks(slot, req)
         self.finished.append(req)
         self.active[slot] = None
 
@@ -285,7 +472,18 @@ class ServeEngine:
         active_mask = np.array([r is not None for r in self.active])
         if not active_mask.any():
             return 0
-        logits, self.cache = self.bundle.decode_slotted(
+        decode = self.bundle.decode_slotted
+        if self.paged:
+            # grow each active slot's table to cover this step's write
+            # position; pool exhaustion sheds explicitly (OOM), so the
+            # mask may shrink before the dispatch
+            self._grow_blocks(now)
+            active_mask = np.array([r is not None for r in self.active])
+            if not active_mask.any():
+                return 0
+            self._refresh_tables()
+            decode = self.bundle.decode_paged
+        logits, self.cache = decode(
             self.params, self.cache,
             {"tokens": self._tensor(self.last_tok[:, None]),
              "active": self._tensor(active_mask)})
@@ -302,17 +500,33 @@ class ServeEngine:
         return produced
 
     # ----------------------------------------------------------------- tick
-    def tick(self, now: float) -> Dict[str, float]:
+    def tick(self, now: float, *, realtime: bool = False
+             ) -> Dict[str, float]:
         """One scheduling round on the caller's clock: expire deadlines,
-        admit waiting requests (bucketed prefill), one decode step.
-        Returns ``{"produced", "admitted", "expired"}`` counts."""
+        admit waiting requests (bucketed prefill), one decode step.  The
+        router drives its replicas through this, one round per router
+        tick.
+
+        Returns ``{"produced", "admitted", "expired", "stall_s"}``;
+        ``stall_s`` is the injected ``serve.decode`` stall the caller adds
+        to its virtual clock (``realtime=True`` sleeps it here)."""
         expired = self._expire(now)
         admitted = self._admit(now)
         self.peak_concurrency = max(self.peak_concurrency,
                                     sum(r is not None for r in self.active))
-        produced = self.step(now)
+        stall_s = 0.0
+        if self.faults is not None:
+            # the engine owns no clock: the plan is consulted (check), never
+            # slept inside (fire), so a virtual clock advances instead
+            spec = self.faults.check("serve.decode", step=self.decode_steps)
+            if spec is not None and spec.kind in ("hang", "stall"):
+                if realtime:
+                    time.sleep(spec.hang_s)
+                else:
+                    stall_s = spec.hang_s
+        produced = self.step(now + stall_s)
         return {"produced": produced, "admitted": admitted,
-                "expired": expired}
+                "expired": expired, "stall_s": stall_s}
 
     # ------------------------------------------------------------------ run
     def run(self, requests: Sequence[ServeRequest], *,
@@ -347,9 +561,9 @@ class ServeEngine:
                     and pending:
                 vnow = pending[0].arrival_s  # idle jump to the next arrival
                 continue
-            t = self.tick(clock() if realtime else vnow)
+            t = self.tick(clock() if realtime else vnow, realtime=realtime)
             if not realtime:
-                vnow += 1.0
+                vnow += 1.0 + t["stall_s"]
             if t["produced"] == 0 and not t["admitted"] and not t["expired"]:
                 if realtime and pending and not self.waiting \
                         and not any(self.active):

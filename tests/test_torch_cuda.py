@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card: held against its plain version.
+"""The port's CUDA kernels on the card: held against their plain versions.
 
 Imports torch and the port only, so it runs on a machine with a card and
 no JAX:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +12,8 @@ import torch
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
 )
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -87,3 +89,102 @@ def test_engine_decode_runs_the_kernel(cuda_device):
     assert decode_attention.launches == before + cfg.n_layers
     assert torch.isfinite(logits).all()
     assert cache["lens"].tolist() == [4, 10]
+
+
+def _paged_inputs(lens, nb, bs, kvh, rep, hd, dtype, device, seed=0):
+    """A shuffled pool shared out across rows (P = B*NB + 7 pages, some
+    never used), sentinel (= P) entries past each row's kv_len."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    b = len(lens)
+    p = b * nb + 7
+    q = torch.randn(b, kvh * rep, hd, generator=gen)
+    kp = torch.randn(p, bs, kvh, hd, generator=gen)
+    vp = torch.randn(p, bs, kvh, hd, generator=gen)
+    perm = torch.randperm(p, generator=gen)[:b * nb].reshape(b, nb)
+    tables = torch.full((b, nb), p, dtype=torch.int32)
+    for row, n in enumerate(lens):
+        used = min(-(-n // bs), nb)
+        tables[row, :used] = perm[row, :used].to(torch.int32)
+    return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
+            tables.to(device), torch.tensor(lens, dtype=torch.int32,
+                                            device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rep", [1, 4, 7, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bs", [16, 5])
+def test_paged_kernel_matches_plain_version(cuda_device, dtype, rep, hd, bs):
+    """Shuffled, shared-out pages; kv_len 1, the full span, past the span
+    (a finished slot at the boundary), and ending mid-page."""
+    nb = 13
+    lens = [1, nb * bs, nb * bs + 3, 2 * bs + 1, 5 * bs - 1, 37]
+    args = _paged_inputs(lens, nb, bs, 2, rep, hd, dtype, cuda_device)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               paged_decode_attention_ref(*args).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_equals_dense_kernel_on_identity_tables(cuda_device,
+                                                             dtype):
+    """NB*BS == S and tables[b] = b*NB + arange(NB): the same arithmetic in
+    the same order as the dense kernel, so equal bit for bit."""
+    lens = [300, 5, 1024, 77, 1, 640]
+    b, s, bs = len(lens), 1024, 16
+    nb = s // bs
+    q, k, v, kv = _inputs(b, s, 8, 4, 128, lens, dtype, cuda_device)
+    tables = torch.arange(b * nb, dtype=torch.int32,
+                          device=cuda_device).reshape(b, nb)
+    paged = paged_decode_attention(q, k.reshape(b * nb, bs, 8, 128),
+                                   v.reshape(b * nb, bs, 8, 128), tables, kv)
+    assert torch.equal(paged, decode_attention(q, k, v, kv))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_rows_do_not_depend_on_the_batch(cuda_device):
+    lens = [300, 5, 1024, 77]
+    q, kp, vp, tables, kv = _paged_inputs(lens, 64, 16, 8, 4, 128,
+                                          torch.bfloat16, cuda_device)
+    full = paged_decode_attention(q, kp, vp, tables, kv)
+    for b in range(4):
+        one = paged_decode_attention(q[b:b + 1].contiguous(), kp, vp,
+                                     tables[b:b + 1].contiguous(),
+                                     kv[b:b + 1])
+        assert torch.equal(one[0], full[b])
+
+
+@pytest.mark.cuda
+def test_paged_engine_decode_runs_the_paged_kernel(cuda_device):
+    """A paged engine on the card launches the paged kernel once per layer
+    and decode step, and the dense kernel never."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine, ServeRequest
+    cfg = reduced_config("qwen3-4b")
+    bundle = build_model(cfg)
+    params = bundle.init(0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    reqs = [ServeRequest(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new=5)
+        for i, n in enumerate([3, 17, 9, 30, 12])]
+    engine = ServeEngine(bundle, params, EngineConfig(
+        slots=3, cache_len=64, paged=True, block_size=16), device=cuda_device)
+    dense_before = decode_attention.launches
+    before = paged_decode_attention.launches
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.out) == 5 for r in done)
+    assert paged_decode_attention.launches - before == \
+        engine.decode_steps * cfg.n_layers
+    assert decode_attention.launches == dense_before
