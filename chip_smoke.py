@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
 Run from the repository root, with no arguments:
 
@@ -40,7 +40,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    replicas on the one card sharing one copy of the params answer the 16
    requests without faults and again losing replica 1 a few ticks in;
    every request comes back once in both runs, and the loss fails over;
-8. the last lines are the card (nvidia-smi), a JSON line of every kernel
+8. the dwsep conv1d kernel is held against its plain PyTorch version on
+   the card at the ECG search space's full-width shapes, f32 and bf16, and
+   timed beside the plain version, PyTorch's own two-call equivalent
+   (depthwise ``F.conv1d``, then a 1x1 ``F.conv1d`` with bias and ReLU)
+   and its bound;
+9. the ECG path at full width: 1,024 synthetic records of the paper's
+   (3750, 2) shape, a fixed 7-layer genome with every conv at 32 channels
+   (w8a16i16), ``compile_winner`` (300 AdamW steps at batch 64, BN
+   re-estimation, evaluation, compilation), the winner answering the
+   validation set in batches of 32 and 256, and two replicas with a crash
+   injected at the first dispatch answering the same batches.  Gates: the
+   conv kernel's launches equal conv layers x no-grad forward calls; the
+   deployment logits equal the plain version's on the card; the replicas'
+   classes equal the winner's, with a failover; detection and false-alarm
+   rates are finite.  Train steps/s, eval and served records/s, and the
+   kernel's and the idle share of a deployment forward are printed;
+10. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -64,8 +80,27 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 # kernel vs plain tolerances: f32 sums in another order (1e-5); bf16 output
-# rounding can land on either side of a tie (2e-2)
+# rounding can land on either side of a tie (2e-2; 3e-2 for the conv, the
+# reference's own conv kernel tests' tolerance)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+CONV_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# The ECG path's conv shapes at the search space's full width (B, L, C_in,
+# K, C_out, stride), and the reference kernel tests' edge shapes.
+CONV_SHAPES = [(256, 3750, 2, 7, 32, 1), (256, 3744, 32, 7, 32, 1),
+               (256, 1867, 32, 5, 32, 2), (64, 1875, 16, 3, 8, 4),
+               (2, 50, 16, 1, 2, 1), (1, 33, 2, 3, 130, 1)]
+# Phase 9's genome: dw7s1c32, dw7s1c32, dw5s2c32, dw5s2c32, mp4, dw3s1c32,
+# dw3s2c32 (+ gap, fc2), w8a16i16, decimation 16: input (3750, 2).  Op ids
+# index the search space's op table (60 convs, channel-major, then the 4
+# pools); node i reads node i - 1; the other 8 nodes are dormant.
+ECG_GENES = dict(op_genes=(57, 57, 55, 55, 61, 51, 52) + (0,) * 8,
+                 conn_genes=tuple(range(15)), out_gene=7, w_bits_gene=1,
+                 a_bits_gene=1, i_bits_gene=1, dec_gene=0)
+# deployment logits, conv kernel vs plain conv, f32 end to end: the two
+# differ only in summation order (~1e-6 relative per layer), carried through
+# seven layers; no activation quant on the deployment path, so nothing
+# flips.  Elementwise rtol and atol.
+ECG_LOGIT_TOL = 1e-4
 # logits of one full-width decode step, kernel vs plain attention, bf16 end
 # to end, as a normwise relative error ||a - b|| / ||b||: bf16 keeps 8
 # significant bits (2^-8 relative rounding), and a one-ulp difference in an
@@ -348,12 +383,14 @@ def burst_requests(cfg, max_new: int = 16):
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels.conv1d import dwsep_conv1d
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         paged_decode_attention,
     )
     decode_attention.launches = 0
     paged_decode_attention.launches = 0
+    dwsep_conv1d.launches = 0
 
 
 def read_counts() -> tuple:
@@ -792,6 +829,358 @@ def phase_router(torch, model, device: str = "cuda", reduced: bool = False):
     return outs
 
 
+def conv_bound_ms(x, dw, pw, out) -> tuple:
+    """Least time for one dwsep conv call: x, dw, pw and b read once, the
+    output written once; 2*K*C_in + 2*C_in*C_out + C_out flops per output
+    position (depthwise taps, pointwise product, bias)."""
+    item = x.element_size()
+    b, l_out, c_out = out.shape
+    k, c_in = dw.shape
+    nbytes = (x.numel() + dw.numel() + pw.numel() + c_out + out.numel()) \
+        * item
+    flops = b * l_out * (2 * k * c_in + 2 * c_in * c_out + c_out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_depthwise_call(x, dw, stride):
+    """PyTorch's depthwise conv on the same channels-last input (the first
+    of the two library calls; timed as the yardstick, never used by the
+    port)."""
+    import torch.nn.functional as F
+    return F.conv1d(x.transpose(1, 2), dw.t().unsqueeze(1), stride=stride,
+                    groups=x.shape[2])
+
+
+def conv_pointwise_call(h, pw, b, relu):
+    """The second library call: a 1x1 conv with bias, then the ReLU."""
+    import torch
+    import torch.nn.functional as F
+    y = F.conv1d(h, pw.t().unsqueeze(-1), b)
+    return torch.relu(y) if relu else y
+
+
+def conv_library_call(x, dw, pw, b, stride, relu):
+    """Both library calls; output channels first (B, C_out, L_out)."""
+    return conv_pointwise_call(conv_depthwise_call(x, dw, stride), pw, b,
+                               relu)
+
+
+def conv_case_ms(torch, sets) -> dict:
+    """Kernel vs plain on every set (each: x, dw, pw, b, stride, relu),
+    then kernel, plain, library and bound times over all sets, per call."""
+    from repro_torch.kernels.conv1d import dwsep_conv1d, dwsep_conv1d_ref
+
+    def kernel(x, dw, pw, b, stride, relu):
+        return dwsep_conv1d(x, dw, pw, b, stride=stride, relu=relu)
+
+    def plain(x, dw, pw, b, stride, relu):
+        return dwsep_conv1d_ref(x, dw, pw, b, stride=stride, relu=relu)
+
+    err, worst, lib_err = 0.0, 0.0, 0.0
+    for args in sets:
+        got, want = kernel(*args), plain(*args)
+        lib = conv_library_call(*args).transpose(1, 2)
+        torch.cuda.synchronize()
+        tol = CONV_TOL[str(args[0].dtype).split(".")[-1]]
+        diff = (got.float() - want.float()).abs()
+        # allclose at rtol = atol = tol: |err| <= tol + tol * |plain|
+        ratio = float((diff / (tol + tol * want.float().abs())).max())
+        if not ratio <= 1.0:
+            raise RuntimeError(f"dwsep_conv1d {tuple(args[0].shape)} "
+                               f"{tuple(args[2].shape)} K={args[1].shape[0]}"
+                               f" s={args[4]} {args[0].dtype}: kernel "
+                               f"disagrees with plain, max err "
+                               f"{float(diff.max())}, {ratio:.3g} of the "
+                               f"tolerance")
+        err, worst = max(err, float(diff.max())), max(worst, ratio)
+        lib_err = max(lib_err, float((lib.float() - want.float()).abs().max()))
+    bounds = [conv_bound_ms(x, dw, pw, torch.empty(
+        x.shape[0], (x.shape[1] - dw.shape[0]) // s + 1, pw.shape[1],
+        dtype=x.dtype, device="meta")) for x, dw, pw, _, s, _ in sets]
+    hs = [(conv_depthwise_call(x, dw, s), pw, b, r)
+          for x, dw, pw, b, s, r in sets]
+    return dict(err=err, worst=worst, lib_err=lib_err,
+                ms=time_ms(kernel, sets),
+                plain_ms=time_ms(plain, sets),
+                library_ms=time_ms(conv_library_call, sets),
+                dw_ms=time_ms(conv_depthwise_call,
+                              [(x, dw, s) for x, dw, _, _, s, _ in sets]),
+                pw_ms=time_ms(conv_pointwise_call, hs),
+                bound_ms=sum(t for t, _ in bounds) / len(bounds),
+                bound_by=max(bounds)[1], host_ms=eager_ms(kernel, sets))
+
+
+def phase_conv_kernels(torch, device: str = "cuda",
+                       shapes=CONV_SHAPES) -> None:
+    """The conv kernel vs its plain version at the ECG search space's
+    full-width shapes, f32 and bf16, with times beside the library's two
+    calls and the bound."""
+    for b, length, c_in, k, c_out, stride in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            # enough copies that the timed loop misses in L2 (at most 64:
+            # the small shapes fit in L2 whatever the count)
+            per = (b * length * c_in + b * length * c_out // stride) \
+                * dtype.itemsize
+            n_sets = min(64, max(2, -(-200_000_000 // per)))
+            sets = [tuple(torch.randn(shape, generator=gen, device=device,
+                                      dtype=dtype)
+                          for shape in ((b, length, c_in), (k, c_in),
+                                        (c_in, c_out), (c_out,)))
+                    + (stride, True) for _ in range(n_sets)]
+            r = conv_case_ms(torch, sets)
+            name = str(dtype).split(".")[-1]
+            log(f"[kernel] dwsep_conv1d B={b} L={length} C_in={c_in} "
+                f"K={k} C_out={c_out} stride={stride} {name}: max_abs_err="
+                f"{r['err']:.3g}, {r['worst']:.3g} of the tolerance (rtol = "
+                f"atol = {CONV_TOL[name]}) ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
+                f" (two calls: depthwise F.conv1d {r['dw_ms']:.4f} + 1x1 "
+                f"F.conv1d and ReLU {r['pw_ms']:.4f}; library err "
+                f"{r['lib_err']:.3g}) bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']}); eager call with host launch cost "
+                f"{r['host_ms']:.4f} ms")
+            del sets
+
+
+def profile_forward(torch, tag, forward, x, forward_ms) -> dict:
+    """Where three deployment forwards' device time goes (torch.profiler):
+    device busy, the conv kernel's share of it, and the idle share against
+    ``forward_ms``, the unprofiled wall time of one forward."""
+    from torch.profiler import ProfilerActivity, profile
+    forward(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            forward(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"{tag} the profiler recorded no device kernels: kernel share "
+            f"and idle share not measured")
+        return {}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 3e3
+    conv_ms = sum(e.time_range.elapsed_us() for e in kernels
+                  if "dwsep_conv1d_kernel" in e.name) / 3e3
+    out = dict(busy_ms=busy_ms, conv_ms=conv_ms, kernels=len(kernels) // 3,
+               conv_share=conv_ms / busy_ms, idle_share=1 - busy_ms / forward_ms)
+    log(f"{tag} deployment forward: device busy {busy_ms:.4f} ms over "
+        f"{out['kernels']} kernels, the conv kernel {conv_ms:.4f} ms = "
+        f"{out['conv_share']:.3f} of it; unprofiled forward {forward_ms:.4f}"
+        f" ms -> device idle share {out['idle_share']:.3f}")
+    return out
+
+
+def phase_ecg(torch, device: str = "cuda", n_samples: int = 1024,
+              train_steps: int = 300, train_batch: int = 64,
+              batches=(32, 256), timed_steps: int = 50):
+    """The ECG path at full width: train, compile and serve a genome whose
+    convs are all 32 channels wide on (3750, 2) records.  ``device`` and
+    the sizes let the flow be rehearsed on the CPU at toy size."""
+    import numpy as np
+
+    import repro_torch.hwlib.layers as layers_mod
+    from repro_torch.core import trainer
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.core.genome import Genome, describe
+    from repro_torch.data.ecg import make_ecg_dataset, train_val_split
+    from repro_torch.kernels.conv1d import dwsep_conv1d, dwsep_conv1d_ref
+    from repro_torch.optim import adamw
+    from repro_torch.serve import compile_winner, replicate_winner
+
+    t0 = time.perf_counter()
+    x, y = make_ecg_dataset(seed=SEED, n_samples=n_samples, decimation=16)
+    tr, va = train_val_split(x, y)
+    genome = Genome(**ECG_GENES)
+    specs = genome.phenotype()
+    convs = sum(s.kind == "dwsep_conv" for s in specs)
+    log(f"[ecg] data: {x.shape} records ({len(tr[0])} train, {len(va[0])} "
+        f"val) in {time.perf_counter() - t0:.1f}s on the host; genome "
+        f"{' '.join(s.short() for s in specs)} {genome.quant().short()}, "
+        f"{convs} convs\n" + describe(genome))
+    x_va, y_va = va
+
+    reset_counts()
+    t0 = time.perf_counter()
+    winner = compile_winner(genome, tr, va, train_steps=train_steps,
+                            train_batch=train_batch, seed=SEED,
+                            device=device)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    classes, calls = {}, 0
+    for bs in batches:
+        classes[bs] = np.concatenate([winner.classify(x_va[i:i + bs])
+                                      for i in range(0, len(x_va), bs)])
+        calls += -(-len(x_va) // bs)
+    plan = FaultPlan([FaultSpec(site="router.dispatch", kind="crash",
+                                at=(1,))])
+    replicated = replicate_winner(winner, 2, faults=plan)
+    rep_classes = {bs: np.concatenate([replicated.classify(x_va[i:i + bs])
+                                       for i in range(0, len(x_va), bs)])
+                   for bs in batches}
+    calls += sum(-(-len(x_va) // bs) for bs in batches)
+    torch.cuda.synchronize()
+    launches = dwsep_conv1d.launches
+
+    # no-grad forward calls of the run: BN re-estimation (the pre-BN
+    # product, then the layer: two launches a conv), one evaluation chunk
+    # of 256 records, the accumulator profile, every served batch (a
+    # crashed dispatch raises before its forward)
+    forwards = 2 + -(-len(x_va) // 256) + 1 + calls
+    meta = winner.train_meta
+    log(f"[ecg] compile_winner: {train_steps} steps at batch {train_batch}, "
+        f"BN re-estimation, evaluation, compilation in {compile_s:.1f}s; "
+        f"detection {meta['detection_rate']:.4f} false alarm "
+        f"{meta['false_alarm_rate']:.4f} val_loss {meta['val_loss']:.4f}; "
+        f"served {len(x_va)} records in batches of {list(batches)} alone "
+        f"and behind 2 replicas (stats {replicated.stats}); dwsep_conv1d "
+        f"launches {launches} (= {convs} convs x {forwards} no-grad "
+        f"forwards)")
+    if launches != convs * forwards:
+        raise RuntimeError(f"dwsep_conv1d launched {launches} times, want "
+                           f"{convs} convs x {forwards} forwards")
+    if not all(np.isfinite(meta[k]) for k in ("detection_rate",
+                                              "false_alarm_rate",
+                                              "val_loss")):
+        raise RuntimeError(f"non-finite rates {meta}")
+    for bs in batches:
+        if not np.array_equal(rep_classes[bs], classes[bs]):
+            raise RuntimeError(f"replicated classes differ from the "
+                               f"winner's at batch {bs}")
+        if bs != batches[0] and not np.array_equal(classes[bs],
+                                                   classes[batches[0]]):
+            log(f"[ecg] classes at batch {bs} differ from batch "
+                f"{batches[0]} in {int((classes[bs] != classes[batches[0]]).sum())}"
+                f" records (reported, not gated)")
+    if replicated.stats["failovers"] < 1:
+        raise RuntimeError(f"the injected crash did not fail over "
+                           f"({replicated.stats})")
+
+    # the deployment forward, kernel vs plain conv, on the card
+    x256 = x_va[:256]
+    logits_k = winner.predict(x256)
+    layers_mod.dwsep_conv1d = dwsep_conv1d_ref
+    try:
+        logits_p = winner.predict(x256)
+    finally:
+        layers_mod.dwsep_conv1d = dwsep_conv1d
+    logit_err = float(np.abs(logits_k - logits_p).max())
+    log(f"[ecg] deployment logits ({len(x256)} records), conv kernel vs "
+        f"plain: max_abs_err={logit_err:.3g} (tol {ECG_LOGIT_TOL}), |logits|"
+        f" max {float(np.abs(logits_p).max()):.3g}; classes equal: "
+        f"{bool(np.array_equal(logits_k.argmax(1), logits_p.argmax(1)))}")
+    if not np.allclose(logits_k, logits_p, rtol=ECG_LOGIT_TOL,
+                       atol=ECG_LOGIT_TOL) or not np.array_equal(
+            logits_k.argmax(1), logits_p.argmax(1)):
+        raise RuntimeError(f"deployment logits, kernel vs plain conv: max "
+                           f"err {logit_err}, or the classes differ")
+
+    def recorded(fn, *args, **kwargs):
+        """Run ``fn`` and return the inputs of every conv launch it made."""
+        seen = []
+
+        def record(xx, dw, pw, b, *, stride, relu):
+            seen.append((xx, dw, pw, b, stride, relu))
+            return dwsep_conv1d(xx, dw, pw, b, stride=stride, relu=relu)
+        layers_mod.dwsep_conv1d = record
+        try:
+            fn(*args, **kwargs)
+        finally:
+            layers_mod.dwsep_conv1d = dwsep_conv1d
+        return seen
+
+    # the conv kernel at the main path's inputs: the six convs of one
+    # deployment forward at batch 256 (ReLU fused)
+    xb = trainer.to_device(tr[0][:256], winner.device)
+    seen = recorded(winner._predict, xb)
+    path = conv_case_ms(torch, seen)
+    for i, args in enumerate(seen):
+        one = conv_case_ms(torch, [args])
+        log(f"[kernel] dwsep_conv1d deployment conv {i} "
+            f"{tuple(args[0].shape)} -> C_out {args[2].shape[1]} K="
+            f"{args[1].shape[0]} s={args[4]}: ms={one['ms']:.4f} plain_ms="
+            f"{one['plain_ms']:.4f} library_ms={one['library_ms']:.4f} "
+            f"bound_ms={one['bound_ms']:.4f} ({one['bound_by']})")
+    log(f"[kernel] dwsep_conv1d over one deployment forward's {len(seen)} "
+        f"convs at batch {xb.shape[0]} (per launch, averaged): max_abs_err="
+        f"{path['err']:.3g}, {path['worst']:.3g} of the tolerance "
+        f"(rtol = atol = {CONV_TOL['float32']}) ms={path['ms']:.4f} plain_ms="
+        f"{path['plain_ms']:.4f} library_ms={path['library_ms']:.4f} (two "
+        f"calls: {path['dw_ms']:.4f} + {path['pw_ms']:.4f}) bound_ms="
+        f"{path['bound_ms']:.4f} ({path['bound_by']}); eager call with host"
+        f" launch cost {path['host_ms']:.4f} ms")
+    del seen
+
+    # rates: training steps, evaluation, serving at batch 256
+    quant = genome.quant()
+    x_dev, y_dev, idx_dev, x_calib = trainer.stage_training(
+        tr[0], tr[1], SEED, timed_steps + 3, train_batch, winner.device)
+    params = trainer.init_candidate(torch.Generator().manual_seed(SEED),
+                                    specs, device=winner.device)
+    opt = adamw(3e-3, b1=0.9, b2=0.99, weight_decay=1e-4)
+    state = opt.init(params)
+    rates = {}
+    for s in range(timed_steps + 3):
+        if s == 3:                       # after warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, state, _ = trainer.train_step_pure(
+            params, state, x_dev[idx_dev[s]], y_dev[idx_dev[s]],
+            specs=specs, quant=quant, opt=opt)
+    torch.cuda.synchronize()
+    rates["train_steps_per_s"] = timed_steps / (time.perf_counter() - t0)
+    # the launches without ReLU (BN params present) at the main path's
+    # inputs: one BN re-estimation on the calibration records and one
+    # evaluation, held against the plain version like the deployment convs
+    bn_seen = []
+    params = trainer.refresh_bn_stats(params, specs, x_calib, quant)
+    bn_seen += recorded(trainer.refresh_bn_stats, params, specs, x_calib,
+                        quant)
+    bn_seen += recorded(trainer.evaluate, params, specs, quant, x_va, y_va,
+                        device=winner.device)
+    if not bn_seen or any(args[5] for args in bn_seen):
+        raise RuntimeError(f"BN re-estimation and evaluation launched "
+                           f"{len(bn_seen)} convs, want all without ReLU")
+    bn_path = conv_case_ms(torch, bn_seen)
+    path["err"] = max(path["err"], bn_path["err"])
+    log(f"[kernel] dwsep_conv1d without ReLU over one BN re-estimation "
+        f"({len(x_calib)} records) and one evaluation ({len(x_va)} records):"
+        f" {len(bn_seen)} launches, max_abs_err={bn_path['err']:.3g}, "
+        f"{bn_path['worst']:.3g} of the tolerance (rtol = atol = "
+        f"{CONV_TOL['float32']}) ms={bn_path['ms']:.4f} plain_ms="
+        f"{bn_path['plain_ms']:.4f} library_ms={bn_path['library_ms']:.4f} "
+        f"bound_ms={bn_path['bound_ms']:.4f} ({bn_path['bound_by']})")
+    del bn_seen
+    t0 = time.perf_counter()
+    trainer.evaluate(params, specs, quant, x_va, y_va, device=winner.device)
+    rates["eval_records_per_s"] = len(x_va) / (time.perf_counter() - t0)
+    x_serve = tr[0][:256]
+    winner.predict(x_serve)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        winner.predict(x_serve)
+    serve_s = (time.perf_counter() - t0) / 5
+    rates["served_records_per_s"] = len(x_serve) / serve_s
+    log(f"[ecg] rates: {rates['train_steps_per_s']:.2f} train steps/s (batch"
+        f" {train_batch}), {rates['eval_records_per_s']:.1f} eval records/s "
+        f"({len(x_va)} records), {rates['served_records_per_s']:.1f} served "
+        f"records/s at batch 256 ({1e3 * serve_s:.3f} ms a batch, host "
+        f"copies in and out included)")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        winner._predict(xb)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) / 5 * 1e3
+    rates.update(profile_forward(torch, "[ecg-profile]", winner._predict, xb,
+                                 forward_ms))
+    return launches, path, {"winner": winner, "rates": rates,
+                            "logit_err": logit_err}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -834,6 +1223,10 @@ def main() -> int:
                                                    served["tokens"])
     phase_capacity(torch, served["model"])
     phase_router(torch, served["model"])
+    del served
+    torch.cuda.empty_cache()
+    phase_conv_kernels(torch)
+    conv_launches, conv_path, ecg = phase_ecg(torch)
 
     kernels = [{
         "name": "decode_attention",
@@ -863,8 +1256,29 @@ def main() -> int:
         "library": "two calls: gather_paged_kv (gather_ms), then "
                    "scaled_dot_product_attention on the gathered view "
                    "(library_ms)",
+    }, {
+        "name": "dwsep_conv1d",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/dwsep_conv1d.cu",
+        "replaces": "src/repro/kernels/conv1d/kernel.py:58",
+        "launches": conv_launches,
+        "max_abs_err": conv_path["err"],
+        "ms": conv_path["ms"],
+        "plain_ms": conv_path["plain_ms"],
+        "bound_ms": conv_path["bound_ms"],
+        "bound_by": conv_path["bound_by"],
+        "library_ms": conv_path["library_ms"],
+        "dw_ms": conv_path["dw_ms"],
+        "pw_ms": conv_path["pw_ms"],
+        "library": "two calls: depthwise F.conv1d(groups=C_in) (dw_ms), "
+                   "then a 1x1 F.conv1d with bias and the ReLU (pw_ms); "
+                   "times per launch, averaged over one deployment "
+                   "forward's six convs at batch 256; max_abs_err also "
+                   "over one BN re-estimation's and one evaluation's "
+                   "launches without ReLU",
     }]
-    log(f"[done] phases 3-7 in {time.perf_counter() - t_total:.1f}s")
+    log(f"[done] phases 3-9 in {time.perf_counter() - t_total:.1f}s; ecg "
+        f"rates {ecg['rates']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,3 @@
-"""Numpy-only core modules the port keeps its own copy of."""
+"""Core of the NAS loop (counterpart of ``repro/core``): the port's own
+copies of the reference's numpy modules, and the trainer and the model
+compiler in PyTorch."""

@@ -14,6 +14,10 @@ one engine or replicas behind a router.
 * :mod:`repro_torch.serve.paged` — :class:`BlockPool`, the block allocator
   behind the paged engine.
 * :mod:`repro_torch.serve.buckets` — prefill admission buckets.
+* :func:`~repro_torch.serve.winner.compile_winner` — genome front-end:
+  train -> compile -> :class:`ServableWinner`;
+  :func:`~repro_torch.serve.winner.replicate_winner` adds replicated
+  dispatch (:class:`ReplicatedWinner`).
 
 ``loadgen``, ``paged`` and ``buckets`` are copies of the reference's numpy
 modules.
@@ -34,21 +38,31 @@ from repro_torch.serve.loadgen import (
 )
 from repro_torch.serve.paged import BlockPool, blocks_for
 from repro_torch.serve.router import ReplicaRouter, RouterConfig
+from repro_torch.serve.winner import (
+    ReplicatedWinner,
+    ServableWinner,
+    compile_winner,
+    replicate_winner,
+)
 
 __all__ = [
     "BlockPool",
     "EngineConfig",
     "PrefillBucket",
     "ReplicaRouter",
+    "ReplicatedWinner",
     "RouterConfig",
+    "ServableWinner",
     "ServeEngine",
     "ServeRequest",
     "blocks_for",
     "build_buckets",
+    "compile_winner",
     "gamma_workload",
     "greedy_reference",
     "latency_stats",
     "longtail_workload",
     "onoff_workload",
     "poisson_workload",
+    "replicate_winner",
 ]

@@ -73,13 +73,13 @@ from repro_torch.serve.engine import EngineConfig, ServeEngine, ServeRequest
 from repro_torch.serve.paged import blocks_for
 
 
-def _params_to(params: Any, device: torch.device) -> Any:
+def params_to(params: Any, device: torch.device) -> Any:
     """The param tree (dicts, lists, tensors) on ``device``; a tensor
     already there is shared, not copied."""
     if isinstance(params, dict):
-        return {k: _params_to(v, device) for k, v in params.items()}
+        return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, list):
-        return [_params_to(v, device) for v in params]
+        return [params_to(v, device) for v in params]
     return params.to(device)
 
 
@@ -167,7 +167,7 @@ class ReplicaRouter:
             # (scheduler idiom) and stages its params there; None = default
             dev = resolve_device(devices[i % len(devices)] if devices
                                  else None)
-            p = params if not devices else _params_to(params, dev)
+            p = params if not devices else params_to(params, dev)
             self.replicas.append(_Replica(
                 i, ServeEngine(bundle, p, cfg.engine, device=dev), dev))
         self.reset()

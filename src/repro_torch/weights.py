@@ -1,13 +1,14 @@
 """Reference params -> port params.
 
-The only place where the two packages' layouts are mapped.  ``repro``
-stacks every layer's params on a leading ``layers`` axis (for
-``lax.scan``); the port keeps a list of per-layer dicts.  Leaf names and
+The only place where the two packages' layouts are mapped.  For the LM
+family ``repro`` stacks every layer's params on a leading ``layers`` axis
+(for ``lax.scan``); the port keeps a list of per-layer dicts.  An ECG
+candidate is a list of per-layer dicts on both sides.  Leaf names and
 ``(in, out)`` matrix layouts are the same on both sides.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -49,3 +50,13 @@ def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
     if "unembed" in tree:
         out["unembed"] = _tensor(tree["unembed"], dev)
     return out
+
+
+def candidate_params_from_jax(params_list: Sequence[Dict[str, Any]],
+                              device: DeviceLike = None
+                              ) -> List[Dict[str, torch.Tensor]]:
+    """``params_list`` is a reference candidate's params (``init_candidate``
+    or a trained tree) with numpy leaves.  Returns the port's list of
+    per-layer dicts on ``device``, each leaf in its source dtype."""
+    dev = resolve_device(device)
+    return [{k: _tensor(v, dev) for k, v in p.items()} for p in params_list]

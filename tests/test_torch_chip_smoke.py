@@ -7,6 +7,7 @@ paged-equals-dense gate, capacity and the router's failover) is exercised
 here before any chip time is spent.  Timings are stubbed: CUDA events exist
 only on the card.
 """
+import re
 import sys
 from pathlib import Path
 
@@ -105,3 +106,78 @@ def test_router_phase_runs_on_cpu(served):
                                  reduced=True)
     assert clean == lost
     assert "'quarantined': [1]" in text and "16/16 requests" in text
+
+
+@pytest.fixture
+def ecg_patched():
+    """Phases 8-9 on the CPU: CUDA timing stubbed, conv wrapper calls
+    counted as launches (the CPU path launches nothing)."""
+    import repro_torch.hwlib.layers as layers_mod
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    lines = []
+
+    def counted(*args, **kw):
+        conv_ops.dwsep_conv1d.launches += 1
+        return conv_ops.dwsep_conv1d_ref(*args, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "log", lines.append)
+        mp.setattr(torch.cuda, "synchronize", lambda *a: None)
+        mp.setattr(chip_smoke, "time_ms", lambda fn, sets: 0.0)
+        mp.setattr(chip_smoke, "eager_ms", lambda fn, sets: 0.0)
+        mp.setattr(layers_mod, "dwsep_conv1d", counted)
+        mp.setattr(conv_ops.dwsep_conv1d, "launches", 0)
+        yield lines
+
+
+def test_conv_kernel_phase_runs_on_cpu(ecg_patched):
+    """Phase 8 at small shapes: kernel (here the plain path) vs plain, and
+    the two-call library equivalent agrees with both in f32 (in bf16 the
+    library rounds its depthwise result to bf16 between the calls)."""
+    chip_smoke.phase_conv_kernels(torch, device="cpu", shapes=[
+        (2, 50, 16, 1, 2, 1), (1, 33, 2, 3, 130, 1), (3, 41, 8, 7, 4, 4)])
+    assert len(ecg_patched) == 6
+    f32 = [line for line in ecg_patched if " float32:" in line]
+    assert len(f32) == 3
+    for line in f32:
+        assert float(re.search(r"library err ([0-9.e+-]+)", line)[1]) < 1e-4
+
+
+def test_conv_bound_counts_bytes_and_flops():
+    x = torch.empty(256, 3744, 32)
+    out = torch.empty(256, 3738, 32)
+    ms, by = chip_smoke.conv_bound_ms(x, torch.empty(7, 32),
+                                      torch.empty(32, 32), out)
+    want_bytes = (x.numel() + 7 * 32 + 32 * 32 + 32 + out.numel()) * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(want_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_ecg_phase_runs_on_cpu(ecg_patched):
+    """Phase 9 at toy size (40 records, 3 steps): the launch gate, the
+    kernel-vs-plain logits gate, the replicas' failover and the rates."""
+    launches, path, out = chip_smoke.phase_ecg(
+        torch, device="cpu", n_samples=40, train_steps=3, train_batch=8,
+        batches=(4, 16), timed_steps=2)
+    text = "\n".join(ecg_patched)
+    # 6 convs x (2 BN re-estimation + 1 eval chunk + 1 profile + 2 + 1
+    # single-winner batches + 2 + 1 replicated batches) for 8 val records
+    assert launches == 6 * (2 + 1 + 1 + 3 + 3)
+    assert "'failovers': 1" in text
+    assert out["logit_err"] <= chip_smoke.ECG_LOGIT_TOL
+    assert path["err"] == 0.0 and path["bound_by"] in ("bytes",
+                                                       "operations")
+    assert out["rates"]["train_steps_per_s"] > 0
+    assert out["winner"].input_length == 3750
+    assert "dw7s1c32 dw7s1c32 dw5s2c32 dw5s2c32 mp4 dw3s1c32 dw3s2c32" \
+        in text
+
+
+def test_ecg_phase_gates_on_launches(ecg_patched, monkeypatch):
+    """A conv that skips the kernel on the path fails the launch gate."""
+    from repro_torch.kernels.conv1d import ops as conv_ops
+    from repro_torch.hwlib import layers as layers_mod
+    monkeypatch.setattr(layers_mod, "dwsep_conv1d", conv_ops.dwsep_conv1d_ref)
+    with pytest.raises(RuntimeError, match="dwsep_conv1d launched 0 times"):
+        chip_smoke.phase_ecg(torch, device="cpu", n_samples=20,
+                             train_steps=1, train_batch=4, batches=(4,),
+                             timed_steps=1)

@@ -4,11 +4,14 @@ Imports torch and the port only, so it runs on a machine with a card and
 no JAX:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Without a card every test skips (the fixture decides, at run time).
 Tolerances: f32 1e-5 (both sides sum in f32, in different orders); bf16
-2e-2 (the output's single bf16 rounding can land on either side).
+2e-2 for attention and 3e-2 for the conv (the reference's own kernel
+tests' tolerances: the output's single bf16 rounding can land on either
+side).
 """
 import pytest
 import torch
 
+from repro_torch.kernels.conv1d import dwsep_conv1d, dwsep_conv1d_ref
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
@@ -188,3 +191,80 @@ def test_paged_engine_decode_runs_the_paged_kernel(cuda_device):
     assert paged_decode_attention.launches - before == \
         engine.decode_steps * cfg.n_layers
     assert decode_attention.launches == dense_before
+
+
+# the ECG path's conv shapes at the search space's full width (B, L, C_in,
+# K, C_out, stride), and the reference kernel tests' edge shapes
+CONV_SHAPES = [
+    (256, 3750, 2, 7, 32, 1),
+    (256, 3744, 32, 7, 32, 1),
+    (256, 1867, 32, 5, 32, 2),
+    (64, 1875, 16, 3, 8, 4),
+    (2, 50, 16, 1, 2, 1),
+    (1, 33, 2, 3, 130, 1),
+]
+CONV_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+def _conv_inputs(b, length, c_in, k, c_out, dtype, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(device, dtype)
+                 for shape in ((b, length, c_in), (k, c_in), (c_in, c_out),
+                               (c_out,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("b,length,c_in,k,c_out,stride", CONV_SHAPES)
+def test_conv_kernel_matches_plain_version(cuda_device, b, length, c_in, k,
+                                           c_out, stride, relu, dtype):
+    args = _conv_inputs(b, length, c_in, k, c_out, dtype, cuda_device)
+    before = dwsep_conv1d.launches
+    got = dwsep_conv1d(*args, stride=stride, relu=relu)
+    torch.cuda.synchronize()
+    assert dwsep_conv1d.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, (length - k) // stride + 1,
+                                                c_out)
+    torch.testing.assert_close(
+        got.float(), dwsep_conv1d_ref(*args, stride=stride,
+                                      relu=relu).float(), **CONV_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_conv_kernel_rows_do_not_depend_on_the_batch(cuda_device):
+    """No atomics, no cross-record state: a record alone equals the same
+    record inside a batch, bit for bit."""
+    x, dw, pw, b = _conv_inputs(5, 1867, 32, 5, 32, torch.float32,
+                                cuda_device)
+    full = dwsep_conv1d(x, dw, pw, b, stride=2)
+    for r in range(5):
+        one = dwsep_conv1d(x[r:r + 1].contiguous(), dw, pw, b, stride=2)
+        assert torch.equal(one[0], full[r])
+
+
+@pytest.mark.cuda
+def test_conv_launches_count_no_grad_layers_only(cuda_device):
+    """A no-grad eval forward of a dw-sep conv is one kernel launch, with
+    BN running stats or folded; a training forward, or an eval forward with
+    grad enabled, runs autograd ops and launches nothing."""
+    from repro_torch.hwlib.layers import LayerSpec, apply_layer, init_layer
+    from repro_torch.hwlib.quant import fold_batchnorm
+    spec = LayerSpec(kind="dwsep_conv", out_channels=32, kernel_size=5,
+                     stride=2)
+    params = {k: v.to(cuda_device) for k, v in init_layer(
+        torch.Generator().manual_seed(0), spec, 16).items()}
+    x = torch.randn(4, 300, 16, device=cuda_device)
+    before = dwsep_conv1d.launches
+    with torch.no_grad():
+        bn = apply_layer(params, spec, x)
+        folded = apply_layer(fold_batchnorm(params, spec), spec, x)
+    assert dwsep_conv1d.launches == before + 2
+    torch.testing.assert_close(bn, folded, rtol=1e-5, atol=1e-5)
+    apply_layer(params, spec, x, train=True)
+    apply_layer(params, spec, x)
+    with torch.no_grad():
+        apply_layer(params, spec, x, train=True)
+    assert dwsep_conv1d.launches == before + 2

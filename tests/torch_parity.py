@@ -60,3 +60,47 @@ def params(jcfg, seed=0):
 def np_of(x):
     """numpy view of a torch tensor or jax array."""
     return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+# ---------------------------------------------------------------- ECG path
+
+# The full-width genome of chip_smoke.py's phase 9: dw7s1c32, dw7s1c32,
+# dw5s2c32, dw5s2c32, mp4, dw3s1c32, dw3s2c32 (+ gap, fc2), w8a16i16, input
+# (3750, 2).  Op ids index the search space's op table (60 convs, c-major,
+# then 4 pools); node i reads node i - 1.
+WIDE_GENES = dict(op_genes=(57, 57, 55, 55, 61, 51, 52) + (0,) * 8,
+                  conn_genes=tuple(range(15)), out_gene=7, w_bits_gene=1,
+                  a_bits_gene=1, i_bits_gene=1, dec_gene=0)
+# A narrow one for the CPU tests: dw5s2c8, mp4, dw3s1c16, dw7s4c4 (+ gap,
+# fc2), w4a8i16, input (1875, 2).
+NARROW_GENES = dict(op_genes=(31, 61, 39, 23) + (0,) * 11,
+                    conn_genes=tuple(range(15)), out_gene=4, w_bits_gene=0,
+                    a_bits_gene=0, i_bits_gene=1, dec_gene=1)
+
+
+def genomes(genes):
+    """(repro Genome, port Genome) of the same genes."""
+    from repro.core.genome import Genome as JaxGenome
+    from repro_torch.core.genome import Genome
+    return JaxGenome(**genes), Genome(**genes)
+
+
+def candidate_params(jspecs, seed=0, perturb=True):
+    """(jax params, numpy params) of ``repro``'s ``init_candidate``.  With
+    ``perturb`` the conv biases and BN params are moved off the init's
+    exact 0 and 1 (with a numpy stream), so that BN and bias arithmetic is
+    exercised."""
+    from repro.core.trainer import init_candidate
+    tree = jax.tree.map(np.asarray,
+                        init_candidate(jax.random.PRNGKey(seed), jspecs))
+    rng = np.random.default_rng(seed)
+    if perturb:
+        for p in tree:
+            for k in ("b", "bn_mean", "bn_bias", "bn_scale"):
+                if k in p:
+                    p[k] = (p[k] + rng.normal(0, 0.1, p[k].shape)
+                            ).astype(np.float32)
+            if "bn_var" in p:
+                p["bn_var"] = rng.uniform(0.5, 2.0, p["bn_var"].shape
+                                          ).astype(np.float32)
+    return [{k: jnp.asarray(v) for k, v in p.items()} for p in tree], tree
