@@ -12,26 +12,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. the port's CUDA sources are built (repro_torch/_build.py, nvcc for
    sm_90a), and the build seconds printed;
 3. the dense decode-attention kernel is held against its plain PyTorch
-   version on the card at the decode shapes of qwen3-4b and qwen2-0.5b,
-   f32 and bf16, with mixed kv_len (1, S, and lengths that are no multiple
-   of any tile), and timed beside the plain version and PyTorch's
-   scaled_dot_product_attention;
+   version on the card at the decode shapes of qwen3-4b, qwen2-0.5b and
+   zamba2-7b's shared block (hd 112), f32 and bf16, with mixed kv_len (1,
+   S, and lengths that are no multiple of any tile), and timed beside the
+   plain version and PyTorch's scaled_dot_product_attention;
 3b. the paged kernel likewise, over a shuffled pool of B*NB + 7 pages with
    sentinel table entries past each row's kv_len; with identity tables
    (NB*BS == S) it must equal the dense kernel bit for bit;
+3c. the causal flash-attention kernel is held against its plain version at
+   the prefill shapes of qwen3-4b, qwen2-0.5b and zamba2-7b (S 8, 40, 704,
+   2048), f32 and bf16, and timed beside the plain version, PyTorch's
+   scaled_dot_product_attention(is_causal=True) and its bound;
+3d. the SSD scan kernel likewise, on y and the final state, at zamba2-7b's
+   (B 1 and 4, H 112, P 64, N 64) and mamba2-780m's (H 48, N 128) widths
+   for L 1, 3, 255, 256, 700 and 2048, and at the reference tests' edge
+   shapes (G > 1); no PyTorch call computes the scan;
 4. qwen3-4b at its published widths (bf16, random weights from a seed) is
    served: first through the launcher (repro_torch.launch.serve.main), then
    through a ServeEngine with 8 slots and a 1024-token cache answering 16
-   requests with prompts of 32-700 tokens.  Every request must finish; the
-   kernel's launch count over that run must equal decode_steps x layers;
-   one decode step's logits must match the same step with the attention
-   swapped for the plain version.  The share of requests whose greedy
-   tokens equal the one-request oracle (greedy_reference) is reported, not
-   gated: cuBLAS may pick other GEMM algorithms at batch 1 and batch 8.
+   requests with prompts of 32-700 tokens.  Every request must finish; over
+   that run the decode kernel's launches must equal decode_steps x layers
+   and the flash kernel's prefill_calls x layers; one decode step's logits
+   must match the same step with the attention swapped for the plain
+   version.  The share of requests whose greedy tokens equal the
+   one-request oracle (greedy_reference) is reported, not gated: cuBLAS
+   may pick other GEMM algorithms at batch 1 and batch 8.  Prefill is
+   timed with the flash kernel and with the eager chunked_attention it
+   replaced swapped in, interleaved in this one process.
 5. the same 16 requests through the paged engine (launcher first, then a
    ServeEngine with 16-token blocks and a worst-case pool of 512): every
    request finishes, the paged kernel launches decode_steps x layers times
-   and the dense one never, and every request's tokens equal phase 4's;
+   and the dense one never, the flash kernel prefill_calls x layers times,
+   and every request's tokens equal phase 4's;
 6. paged capacity at the dense cache's memory: 32 slots over the same 512
    blocks answer a 48-request long-tail burst; every request comes back
    once (done, or shed ``oom`` with its partial output), more than 8 are in
@@ -56,7 +68,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    classes equal the winner's, with a failover; detection and false-alarm
    rates are finite.  Train steps/s, eval and served records/s, and the
    kernel's and the idle share of a deployment forward are printed;
-10. the last lines are the card (nvidia-smi), a JSON line of every kernel
+10. zamba2-7b at its published widths (81 Mamba-2 layers, d_model 3584,
+   the shared attention block applied 13 times at hd 112; bf16, random
+   weights from a seed): the launcher, then the 16 requests of phase 4
+   through a dense ServeEngine (8 slots, 1024-token cache, exact-length
+   buckets) and a paged one (16-token blocks, worst-case pool).  Gates:
+   every request finishes; SSD launches = 81 x prefill calls, flash = 13 x
+   prefill calls, decode = 13 x decode steps (dense, then paged); paged
+   tokens equal dense tokens; one prefill's first-token logits and one
+   decode step's logits equal the same calls with the plain versions
+   swapped in; finite logits.  tok/s, the prefill/decode split, kernels a
+   decode step and the idle share are printed, and both new kernels are
+   held against their plain versions and timed at the inputs one prefill
+   gave them, the scan normwise (at random init its y is ~1e-5 of the
+   mixer's D-skip, so the logits gate cannot see it);
+11. mamba2-780m at its published widths (48 layers, d_model 1536, N 128):
+   the launcher behind the router, then 8 of the requests through the
+   dense engine; SSD launches = 48 x prefill calls, the prefill logits
+   gate, and the scan normwise at that prefill's inputs;
+12. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -65,6 +95,7 @@ card mean full f32.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -110,6 +141,44 @@ ECG_LOGIT_TOL = 1e-4
 # logits' scale.  The same step with PyTorch's own attention swapped in is
 # printed beside it for scale.)
 LOGIT_TOL = 2e-2
+# The same normwise measure for zamba2-7b and mamba2-780m, kernels vs
+# plain versions swapped in: first-token logits of one prefill and one
+# decode step's logits.  bf16 end to end through 94 mixers (81 Mamba-2
+# layers, 13 shared-block applications) where qwen3-4b has 36: a random
+# walk of one-ulp flips scales phase 4's 2e-2 by ~sqrt(94 / 36) to ~3e-2,
+# and an SSM state carries a flip on to every later position, so 5e-2.
+HYBRID_LOGIT_TOL = 5e-2
+# SSD scan, kernel vs plain: 1e-4 on y and the f32 state, the reference's
+# own tolerance between its chunked scan and the step-by-step recurrence
+# (tests/test_kernels.py), which is what the kernel runs; bf16 y 2e-2, one
+# output rounding.
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# SSD scan, kernel vs plain, normwise (||got - want|| / ||want|| of y and of
+# the state), the gate that holds at any scale.  At the served models'
+# random init the scan's y is ~1e-5 of the mixer's D-skip (dt 1e-3..0.1,
+# conv weights +-1/sqrt(K C)), so on the main path's inputs an elementwise
+# atol would pass a kernel that wrote zeros; there only this gate runs.
+# f32 1e-4, SSD_TOL's reference tolerance taken normwise: y and the state
+# are sums of products of mixed sign, summed in another order on each side,
+# and a reordering loses ~2^-24 * sqrt(terms) of the terms' magnitude,
+# a share of |y| that grows where they cancel (1.12e-5 of ||y|| at L 1
+# f32 on an H100 80GB HBM3); bf16 y 1e-2: one output rounding is at most
+# 2^-9 relative, and a tie rounded the other way moves one element by a
+# ulp (2^-8).
+SSD_NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# (B, L, H, P, G, N, chunk) of phase 3d: zamba2-7b and mamba2-780m at full
+# width, and the reference kernel tests' edge shapes (timed: full width)
+SSD_CASES = ([(b, length, 112, 64, 1, 64, 256) for b in (1, 4)
+              for length in (1, 3, 255, 256, 700, 2048)]
+             + [(1, length, 48, 64, 1, 128, 256)
+                for length in (1, 3, 255, 256, 700, 2048)])
+SSD_EDGE_CASES = [(2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 32, 32),
+                  (2, 96, 6, 8, 3, 8, 24)]
+# (H, KVH, hd) of the served models' attention (phases 3-3c), and the
+# prompt lengths of phase 3c
+ATTN_SHAPES = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64),
+               "zamba2-7b": (32, 32, 112)}
+FLASH_LENGTHS = (8, 40, 704, 2048)
 
 
 def log(msg: str) -> None:
@@ -212,10 +281,9 @@ def sdpa_call(q, k, v, kv_len):
 
 def phase_kernels(torch, decode_attention, decode_attention_ref) -> None:
     """Kernel vs plain version at the decode shapes of both served models."""
-    shapes = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64)}
     b, s = 8, 1024
     lens = [1, s, 37, 129, 400, 700, 1000, 255]
-    for model, (h, kvh, hd) in shapes.items():
+    for model, (h, kvh, hd) in ATTN_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device="cuda").manual_seed(SEED)
             kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -289,11 +357,10 @@ def phase_paged_kernels(torch) -> None:
         paged_decode_attention,
         paged_decode_attention_ref,
     )
-    shapes = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64)}
     b, nb, bs = 8, 64, 16
     s = nb * bs
     lens = [1, s, 37, 129, 400, 700, 1000, 255]
-    for model, (h, kvh, hd) in shapes.items():
+    for model, (h, kvh, hd) in ATTN_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -347,59 +414,85 @@ def phase_paged_kernels(torch) -> None:
             del sets, dense_sets
 
 
-def load_model(torch, device: str, reduced: bool):
-    """qwen3-4b (published widths, or the reduced config) with random
+def load_model(torch, device: str, reduced: bool, arch: str = "qwen3-4b"):
+    """``arch`` (published widths, or the reduced config) with random
     weights from SEED on ``device``."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.registry import build_model
-    cfg = (reduced_config if reduced else get_config)("qwen3-4b")
+    cfg = (reduced_config if reduced else get_config)(arch)
     bundle = build_model(cfg)
     t0 = time.perf_counter()
     params = bundle.init(SEED, device=device)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in [params["embed"], params["unembed"]]
-                   + [x for lp in params["layers"] for d in lp.values()
-                      for x in d.values()]
-                   + list(params["final_norm"].values()))
+    n_params = sum(t.numel() for t in _tensors(params))
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f}B params in {cfg.dtype}, init "
         f"{time.perf_counter() - t0:.1f}s")
     return cfg, bundle, params
 
 
-def burst_requests(cfg, max_new: int = 16):
-    """The 16 requests of phases 4, 5 and 7 (prompts of 32-700 tokens, a
-    seeded order), made anew on every call."""
+def _tensors(tree):
+    """Every tensor of a param tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def burst_requests(cfg, max_new: int = 16, lengths=(32, 700)):
+    """The 16 requests of phases 4, 5, 7 and 10 (prompts of 32-700 tokens,
+    a seeded order), made anew on every call."""
     import numpy as np
 
     from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(SEED)
     prompt_lens = [int(n) for n in
-                   rng.permutation(np.linspace(32, 700, 16).astype(int))]
+                   rng.permutation(np.linspace(*lengths, 16).astype(int))]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in prompt_lens]
     return [ServeRequest(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
 
 
-def reset_counts() -> None:
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
     from repro_torch.kernels.conv1d import dwsep_conv1d
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         paged_decode_attention,
     )
-    decode_attention.launches = 0
-    paged_decode_attention.launches = 0
-    dwsep_conv1d.launches = 0
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd_scan
+    return {"decode_attention": decode_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "dwsep_conv1d": dwsep_conv1d,
+            "flash_attention": flash_attention,
+            "ssd_scan": ssd_scan}
 
 
-def read_counts() -> tuple:
-    """(dense kernel launches, paged kernel launches) since reset_counts."""
-    from repro_torch.kernels.decode_attention import (
-        decode_attention,
-        paged_decode_attention,
-    )
-    return decode_attention.launches, paged_decode_attention.launches
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    """Each kernel's launches since reset_counts, by name."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def check_launches(counts: dict, want: dict) -> None:
+    """Raise unless each named kernel launched the wanted number of times
+    (``counts`` from read_counts)."""
+    bad = {name: (counts[name], n) for name, n in want.items()
+           if counts[name] != n}
+    if bad:
+        raise RuntimeError("kernel launches (got, want): " + ", ".join(
+            f"{name} launched {got} times, want {n}"
+            for name, (got, n) in bad.items()))
 
 
 def split_run(torch, engine, bundle_fields, reqs) -> dict:
@@ -431,6 +524,31 @@ def split_run(torch, engine, bundle_fields, reqs) -> dict:
         f"{k} {n} calls {t:.3f}s ({1e3 * t / max(n, 1):.2f} ms/call)"
         for k, (n, t) in split.items()))
     return split
+
+
+def prefill_ab(torch, engine, cfg, reqs) -> dict:
+    """Prefill ms a call with the flash kernel, and with the eager
+    ``chunked_attention`` that prefill ran before it swapped in for the
+    flash op: ``reqs()`` through ``split_run`` four times in one process,
+    flash, chunked, chunked, flash, so that both see the same host."""
+    import repro_torch.models.attention as attention_mod
+
+    def chunked(q, k, v):
+        return attention_mod.chunked_attention(q, k, v, causal=True,
+                                               chunk=cfg.attn_chunk)
+    fields = {"prefill_slotted": "prefill", "decode_slotted": "decode"}
+    ms = {"flash": [], "chunked": []}
+    for which in ("flash", "chunked", "chunked", "flash"):
+        swaps = ([] if which == "flash"
+                 else [(attention_mod, "flash_attention", chunked)])
+        n, t = swapped(swaps, split_run, torch, engine, fields,
+                       reqs())["prefill"]
+        ms[which].append(1e3 * t / max(n, 1))
+    log(f"[serve] prefill A/B in this process, ms a call (flash, chunked, "
+        f"chunked, flash): flash {ms['flash'][0]:.2f} / "
+        f"{ms['flash'][1]:.2f}, chunked_attention {ms['chunked'][0]:.2f} / "
+        f"{ms['chunked'][1]:.2f}")
+    return ms
 
 
 def profile_decode(torch, tag, decode, params, state, batch, step_ms):
@@ -503,16 +621,16 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
     done = engine.run(burst_requests(cfg))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, paged_launches = read_counts()
+    counts = read_counts()
+    launches = counts["decode_attention"]
     stats = engine.stats()
     if len(done) != 16 or not all(r.done and len(r.out) == max_new
                                   for r in done):
         raise RuntimeError("not every request finished with its tokens")
-    want = stats["decode_steps"] * cfg.n_layers
-    if launches != want or paged_launches:
-        raise RuntimeError(f"decode_attention launched {launches} times, "
-                           f"want decode_steps x layers = {want}; the paged "
-                           f"kernel {paged_launches}, want 0")
+    check_launches(counts, {
+        "decode_attention": stats["decode_steps"] * cfg.n_layers,
+        "paged_decode_attention": 0,
+        "flash_attention": stats["prefill_calls"] * cfg.n_layers})
     tokens = sum(len(r.out) for r in done)
 
     split = split_run(torch, engine, {"prefill_slotted": "prefill",
@@ -522,7 +640,10 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
         f", max_new {max_new}, slots {slots}, cache_len {cache_len}: "
         f"{tokens} tokens in {wall:.3f}s = {tokens / wall:.1f} tok/s; "
         f"stats {stats}; decode_attention launches {launches} "
-        f"(= {stats['decode_steps']} x {cfg.n_layers})")
+        f"(= {stats['decode_steps']} x {cfg.n_layers}), flash_attention "
+        f"{counts['flash_attention']} (= {stats['prefill_calls']} x "
+        f"{cfg.n_layers})")
+    prefill_ab(torch, engine, cfg, lambda: burst_requests(cfg))
 
     # one mid-run decode step, kernel vs plain attention, same state
     engine.reset()
@@ -646,17 +767,17 @@ def phase_paged_serve(torch, model, dense_tokens, device: str = "cuda",
     done = engine.run(burst_requests(cfg))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dense_launches, launches = read_counts()
+    counts = read_counts()
+    launches = counts["paged_decode_attention"]
     stats = engine.stats()
     if len(done) != 16 or not all(r.done and len(r.out) == max_new
                                   and not r.oom for r in done):
         raise RuntimeError("paged: not every request finished with its "
                            "tokens")
-    want = stats["decode_steps"] * cfg.n_layers
-    if launches != want or dense_launches:
-        raise RuntimeError(f"paged_decode_attention launched {launches} "
-                           f"times, want decode_steps x layers = {want}; "
-                           f"the dense kernel {dense_launches}, want 0")
+    check_launches(counts, {
+        "paged_decode_attention": stats["decode_steps"] * cfg.n_layers,
+        "decode_attention": 0,
+        "flash_attention": stats["prefill_calls"] * cfg.n_layers})
     same = sum(r.out == dense_tokens[r.rid] for r in done)
     if same != len(done):
         raise RuntimeError(f"paged engine tokens equal the dense engine's "
@@ -669,8 +790,10 @@ def phase_paged_serve(torch, model, dense_tokens, device: str = "cuda",
         f"{slots}, cache_len {cache_len}, block_size 16: {tokens} tokens in "
         f"{wall:.3f}s = {tokens / wall:.1f} tok/s; stats {stats}; "
         f"paged_decode_attention launches {launches} (= "
-        f"{stats['decode_steps']} x {cfg.n_layers}), dense kernel 0; tokens "
-        f"equal to the dense engine's for {same}/{len(done)} requests")
+        f"{stats['decode_steps']} x {cfg.n_layers}), dense kernel 0, "
+        f"flash_attention {counts['flash_attention']} (= "
+        f"{stats['prefill_calls']} x {cfg.n_layers}); tokens equal to the "
+        f"dense engine's for {same}/{len(done)} requests")
 
     # the kernel at the main path's own inputs: a mid-run step's pools,
     # one pair per layer (distinct memory per layer, as in a forward pass)
@@ -1181,6 +1304,496 @@ def phase_ecg(torch, device: str = "cuda", n_samples: int = 1024,
                             "logit_err": logit_err}
 
 
+def flash_bound_ms(q, k) -> tuple:
+    """Least time for one causal prefill attention call: q, k, v read once
+    and the output written once; 4 hd flops per (query, key) pair on or
+    below the diagonal (q.k and p.v) for every head."""
+    b, s, h, hd = q.shape
+    item = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * item
+    flops = 4 * hd * h * b * s * (s + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_causal_call(q, k, v):
+    """PyTorch's own causal attention on the same (B, S, H, hd) inputs
+    (timed as the yardstick, never used by the port)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def flash_case_ms(torch, sets) -> dict:
+    """Kernel vs plain on every set (q, k, v), then kernel, plain, SDPA and
+    bound times per call over all sets."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+    err, lib_err = 0.0, 0.0
+    for q, k, v in sets:
+        got, want = flash_attention(q, k, v), flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        name = str(q.dtype).split(".")[-1]
+        e = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=TOL[name],
+                              atol=TOL[name]):
+            raise RuntimeError(f"flash_attention {tuple(q.shape)} KVH "
+                               f"{k.shape[2]} {name}: kernel disagrees with "
+                               f"plain, max err {e}")
+        err = max(err, e)
+        lib_err = max(lib_err, float((sdpa_causal_call(q, k, v).float()
+                                      - want.float()).abs().max()))
+    bounds = [flash_bound_ms(q, k) for q, k, _ in sets]
+    return dict(err=err, lib_err=lib_err, ms=time_ms(flash_attention, sets),
+                plain_ms=time_ms(flash_attention_ref, sets),
+                library_ms=time_ms(sdpa_causal_call, sets),
+                bound_ms=sum(t for t, _ in bounds) / len(bounds),
+                bound_by=max(bounds)[1], host_ms=eager_ms(flash_attention,
+                                                          sets))
+
+
+def phase_flash_kernels(torch, device: str = "cuda", shapes=ATTN_SHAPES,
+                        lengths=FLASH_LENGTHS) -> None:
+    """The flash kernel vs its plain version at the prefill shapes of the
+    served models, one prompt a call (B 1), f32 and bf16."""
+    for model, (h, kvh, hd) in shapes.items():
+        for s in lengths:
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                per = s * (h + 2 * kvh) * hd * dtype.itemsize
+                n_sets = min(64, max(2, -(-200_000_000 // per)))
+                sets = [tuple(torch.randn(1, s, n, hd, generator=gen,
+                                          device=device, dtype=dtype)
+                              for n in (h, kvh, kvh))
+                        for _ in range(n_sets)]
+                r = flash_case_ms(torch, sets)
+                name = str(dtype).split(".")[-1]
+                log(f"[kernel] flash_attention {model} {name} B=1 S={s} "
+                    f"H={h} KVH={kvh} hd={hd}: max_abs_err={r['err']:.3g} "
+                    f"(tol {TOL[name]}) ms={r['ms']:.4f} plain_ms="
+                    f"{r['plain_ms']:.4f} sdpa_ms={r['library_ms']:.4f} "
+                    f"(sdpa err {r['lib_err']:.3g}) bound_ms="
+                    f"{r['bound_ms']:.4f} ({r['bound_by']}); eager call "
+                    f"with host launch cost {r['host_ms']:.4f} ms")
+                del sets
+
+
+def ssd_inputs(torch, b, length, h, p, g, n, dtype, device, gen):
+    """x, dt, a_neg, B, C as the Mamba-2 mixer feeds the scan: dt is the
+    softplus of N(0, 1/4) plus a dt_bias drawn as the init draws it (dt
+    log-uniform in [1e-3, 0.1]), A in [1, 16]."""
+    dt_init = torch.exp(torch.rand(h, generator=gen, device=device)
+                        * math.log(100.0) + math.log(1e-3))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn(b, length, h, generator=gen, device=device)
+        + dt_bias)
+    return (torch.randn(b, length, h, p, generator=gen, device=device,
+                        dtype=dtype), dt,
+            -(1.0 + 15.0 * torch.rand(h, generator=gen, device=device)),
+            torch.randn(b, length, g, n, generator=gen, device=device,
+                        dtype=dtype),
+            torch.randn(b, length, g, n, generator=gen, device=device,
+                        dtype=dtype))
+
+
+def ssd_bound_ms(x, b_mat) -> tuple:
+    """Least time for one scan: x, dt, B, C read once, y and the f32 state
+    written once; 4 N P flops a step and head (the recurrence's state
+    update and C . h, the fewest the function needs)."""
+    bsz, length, h, p = x.shape
+    n = b_mat.shape[3]
+    item = x.element_size()
+    nbytes = (2 * x.numel() + 2 * b_mat.numel()) * item \
+        + bsz * length * h * 4 + h * 4 + bsz * h * n * p * 4
+    flops = 4 * bsz * length * h * n * p
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_case_ms(torch, sets, chunk: int, timed: bool = True,
+                elementwise: bool = True) -> dict:
+    """Kernel vs plain (y and state) on every set (x, dt, a_neg, B, C),
+    normwise (SSD_NORM_TOL) and, where ``elementwise``, also elementwise
+    (SSD_TOL, printed as a share of the tolerance); then kernel, plain and
+    bound times per call over all sets.  ``y_over_x`` is the largest
+    ||y|| / ||x|| of a set: the scan's size beside the mixer's D-skip at
+    D = 1."""
+    from repro_torch.kernels.ssd import ssd_chunked, ssd_scan
+
+    def kernel(*args):
+        return ssd_scan(*args, chunk)
+
+    def plain(*args):
+        return ssd_chunked(*args, chunk)
+
+    err, worst, rel, y_over_x = 0.0, 0.0, 0.0, 0.0
+    for args in sets:
+        (y, st), (wy, wst) = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        name = str(args[0].dtype).split(".")[-1]
+        y_over_x = max(y_over_x, float(wy.float().norm()
+                                       / args[0].float().norm()))
+        for what, got, want, tol, norm_tol in (
+                ("y", y, wy, SSD_TOL[name], SSD_NORM_TOL[name]),
+                ("state", st, wst, SSD_TOL["float32"],
+                 SSD_NORM_TOL["float32"])):
+            diff = (got.float() - want.float()).abs()
+            r = rel_err(got, want)
+            ratio = float((diff / (tol + tol * want.float().abs())).max())
+            if not (r <= norm_tol and torch.isfinite(got).all()
+                    and (ratio <= 1.0 or not elementwise)):
+                raise RuntimeError(
+                    f"ssd_scan {tuple(args[0].shape)} G={args[3].shape[2]} "
+                    f"N={args[3].shape[3]} {name}: kernel disagrees with "
+                    f"plain on {what}: normwise {r:.3g} (tol {norm_tol}), "
+                    f"max err {float(diff.max())}, {ratio:.3g} of the "
+                    f"elementwise tolerance")
+            err, rel = max(err, float(diff.max())), max(rel, r)
+            worst = max(worst, ratio)
+    out = dict(err=err, worst=worst, rel=rel, y_over_x=y_over_x,
+               tol_y=SSD_NORM_TOL[name])
+    if timed:
+        bounds = [ssd_bound_ms(a[0], a[3]) for a in sets]
+        out.update(ms=time_ms(kernel, sets), plain_ms=time_ms(plain, sets),
+                   bound_ms=sum(t for t, _ in bounds) / len(bounds),
+                   bound_by=max(bounds)[1], host_ms=eager_ms(kernel, sets))
+    return out
+
+
+def phase_ssd_kernels(torch, device: str = "cuda", cases=SSD_CASES,
+                      edge_cases=SSD_EDGE_CASES) -> None:
+    """The SSD kernel vs its plain version at the served models' widths
+    (timed) and the reference tests' edge shapes, f32 and bf16."""
+    for case in list(cases) + list(edge_cases):
+        b, length, h, p, g, n, chunk = case
+        timed = case not in edge_cases
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            per = 2 * b * length * h * p * dtype.itemsize
+            n_sets = min(16, max(2, -(-200_000_000 // per))) if timed else 1
+            sets = [ssd_inputs(torch, b, length, h, p, g, n, dtype, device,
+                               gen) for _ in range(n_sets)]
+            r = ssd_case_ms(torch, sets, chunk, timed)
+            name = str(dtype).split(".")[-1]
+            times = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); no "
+                     f"PyTorch call computes the scan; eager call with host "
+                     f"launch cost {r['host_ms']:.4f} ms") if timed else ""
+            log(f"[kernel] ssd_scan B={b} L={length} H={h} P={p} G={g} "
+                f"N={n} chunk={chunk} {name}: max_abs_err={r['err']:.3g}, "
+                f"{r['worst']:.3g} of the tolerance (y rtol = atol = "
+                f"{SSD_TOL[name]}, state {SSD_TOL['float32']}); normwise "
+                f"{r['rel']:.3g} (tol y {SSD_NORM_TOL[name]}, state "
+                f"{SSD_NORM_TOL['float32']}){times}")
+            del sets
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def swapped(mods_and_fns, fn, *args):
+    """``fn(*args)`` with module attributes swapped for the duration:
+    ``mods_and_fns`` is a list of (module, name, replacement)."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in mods_and_fns]
+    for m, n, f in mods_and_fns:
+        setattr(m, n, f)
+    try:
+        return fn(*args)
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def plain_swaps():
+    """Every kernel on the hybrid path, swapped for its plain version."""
+    import repro_torch.models.attention as attention_mod
+    import repro_torch.models.mamba2 as mamba2_mod
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref,
+        paged_decode_attention_ref,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.ssd import ssd_chunked
+    return [(mamba2_mod, "ssd_scan", ssd_chunked),
+            (attention_mod, "flash_attention", flash_attention_ref),
+            (attention_mod, "decode_attention", decode_attention_ref),
+            (attention_mod, "paged_decode_attention",
+             paged_decode_attention_ref)]
+
+
+def prefill_gate(torch, bundle, params, prompt, device, tag):
+    """One exact-length prefill of ``prompt`` with the kernels, and again
+    with the plain versions swapped in: the first-token logits must be
+    finite and agree normwise within HYBRID_LOGIT_TOL.  Returns (relative
+    error, the inputs of every SSD and flash launch of the kernel run)."""
+    import repro_torch.models.attention as attention_mod
+    import repro_torch.models.mamba2 as mamba2_mod
+    seen = {"ssd_scan": [], "flash_attention": []}
+    ssd, flash = mamba2_mod.ssd_scan, attention_mod.flash_attention
+
+    def rec_ssd(*args):
+        seen["ssd_scan"].append(args)
+        return ssd(*args)
+
+    def rec_flash(*args):
+        seen["flash_attention"].append(args)
+        return flash(*args)
+    batch = {"tokens": torch.as_tensor(prompt, device=device)[None],
+             "lens": torch.tensor([len(prompt)], dtype=torch.int32,
+                                  device=device),
+             "cache_len": len(prompt)}
+    logits_k, _ = swapped([(mamba2_mod, "ssd_scan", rec_ssd),
+                           (attention_mod, "flash_attention", rec_flash)],
+                          bundle.prefill_slotted, params, batch)
+    logits_p, _ = swapped(plain_swaps(), bundle.prefill_slotted, params,
+                          batch)
+    rel = rel_err(logits_k, logits_p)
+    log(f"{tag} prefill of {len(prompt)} tokens: first-token logits "
+        f"kernels vs plain: rel_err={rel:.4g} (tol {HYBRID_LOGIT_TOL}), "
+        f"argmax equal {bool(logits_k.argmax() == logits_p.argmax())}")
+    if not torch.isfinite(logits_k).all() or not rel <= HYBRID_LOGIT_TOL:
+        raise RuntimeError(f"{tag} prefill logits, kernels vs plain: "
+                           f"relative error {rel} over {HYBRID_LOGIT_TOL}, "
+                           f"or not finite")
+    return rel, seen
+
+
+def engine_run(torch, engine, reqs):
+    """Warm-up run, then the measured run with every count reset just
+    before it.  Returns (requests, wall s, counts, stats)."""
+    engine.run(reqs())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs())
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0, read_counts(), engine.stats()
+
+
+def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
+                 arch: str = "zamba2-7b", cache_len: int = 1024,
+                 lengths=(32, 700)):
+    """zamba2-7b at full width: launcher, dense engine, paged engine, the
+    logits gates, and both new kernels at one prefill's inputs.  The
+    keywords let the flow be rehearsed on the CPU at toy size."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_ref,
+    )
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.hybrid import _layout
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    size = "--reduced" if reduced else "--no-reduced"
+    log(f"[{arch}] launcher: repro_torch.launch.serve.main --arch {arch} "
+        f"{size} --engine")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", arch, size, "--engine", "--device", device,
+                       "--seed", str(SEED)])
+    log(f"[{arch}] launcher done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    cfg, bundle, params = load_model(torch, device, reduced, arch)
+    n_groups = _layout(cfg)[0]
+    slots, max_new = 8, 16
+
+    def reqs():
+        return burst_requests(cfg, max_new, lengths)
+    results = {}
+    for paged in (False, True):
+        tag = f"[{arch}{' paged' if paged else ''}]"
+        engine = ServeEngine(bundle, params, EngineConfig(
+            slots=slots, cache_len=cache_len, pad_to=1, max_prefill_batch=8,
+            paged=paged, block_size=16), device=device)
+        done, wall, counts, stats = engine_run(torch, engine, reqs)
+        if len(done) != 16 or not all(r.done and len(r.out) == max_new
+                                      and not r.oom for r in done):
+            raise RuntimeError(f"{tag} not every request finished with its "
+                               f"tokens")
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        other = "decode_attention" if paged else "paged_decode_attention"
+        check_launches(counts, {
+            "ssd_scan": stats["prefill_calls"] * cfg.n_layers,
+            "flash_attention": stats["prefill_calls"] * n_groups,
+            decode: stats["decode_steps"] * n_groups, other: 0})
+        tokens = {r.rid: r.out for r in done}
+        if paged:
+            same = sum(tokens[rid] == results["dense"]["tokens"][rid]
+                       for rid in tokens)
+            if same != len(done):
+                raise RuntimeError(f"{tag} paged engine tokens equal the "
+                                   f"dense engine's for {same}/{len(done)} "
+                                   f"requests, want all")
+        kind = "paged" if paged else "slotted"
+        split = split_run(torch, engine, {f"prefill_{kind}": "prefill",
+                                          f"decode_{kind}": "decode"},
+                          reqs())
+        n_tok = sum(len(r.out) for r in done)
+        log(f"{tag} engine: {len(done)} requests, max_new {max_new}, slots "
+            f"{slots}, cache_len {cache_len}{', block_size 16' if paged else ''}"
+            f": {n_tok} tokens in {wall:.3f}s = {n_tok / wall:.1f} tok/s; "
+            f"stats {stats}; launches {counts} (ssd = {stats['prefill_calls']}"
+            f" x {cfg.n_layers}, flash = {stats['prefill_calls']} x "
+            f"{n_groups}, {decode} = {stats['decode_steps']} x {n_groups})"
+            + (f"; tokens equal to the dense engine's for {same}/16 requests"
+               if paged else ""))
+        results["paged" if paged else "dense"] = dict(
+            tokens=tokens, counts=counts, stats=stats, wall=wall,
+            tok_s=n_tok / wall, split=split)
+
+        # one mid-run decode step: kernels vs plain versions, same state
+        engine.reset()
+        for r in reqs():
+            engine.submit(r)
+        while engine.decode_steps < 6:
+            engine.tick(float(engine.decode_steps))
+        if paged:
+            engine._refresh_tables()
+        active = torch.tensor([r is not None for r in engine.active],
+                              device=device)
+        batch = {"tokens": torch.as_tensor(engine.last_tok[:, None],
+                                           device=device), "active": active}
+        step = bundle.decode_paged if paged else bundle.decode_slotted
+
+        def clone():
+            return {k: v.clone() for k, v in engine.cache.items()}
+        logits_k, _ = step(params, clone(), batch)
+        logits_p, _ = swapped(plain_swaps(), step, params, clone(), batch)
+        if not torch.isfinite(logits_k).all():
+            raise RuntimeError(f"{tag} non-finite decode-step logits")
+        step_rel = rel_err(logits_k[active], logits_p[active])
+        agree = float((logits_k[active].argmax(-1)
+                       == logits_p[active].argmax(-1)).float().mean())
+        log(f"{tag} decode step {engine.decode_steps}: logits kernels vs "
+            f"plain: rel_err={step_rel:.4g} (tol {HYBRID_LOGIT_TOL}), "
+            f"argmax agreement {agree:.3f}")
+        if not step_rel <= HYBRID_LOGIT_TOL:
+            raise RuntimeError(f"{tag} decode-step logits, kernels vs plain:"
+                               f" relative error {step_rel} over "
+                               f"{HYBRID_LOGIT_TOL}")
+        step_ms = 1e3 * split["decode"][1] / max(split["decode"][0], 1)
+        profile_decode(torch, f"{tag}[profile]", step, params, clone(),
+                       batch, step_ms)
+        if not paged:
+            # the dense decode kernel at hd 112, at this step's caches
+            kv_len = engine.cache["lens"] + 1
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            q = torch.randn(slots, cfg.n_heads, cfg.resolved_head_dim,
+                            generator=gen, device=device,
+                            dtype=engine.cache["k"].dtype)
+            sets = [(q, engine.cache["k"][i], engine.cache["v"][i], kv_len)
+                    for i in range(n_groups)]
+            got, ref = decode_attention(*sets[0]), decode_attention_ref(
+                *sets[0])
+            err = float((got.float() - ref.float()).abs().max())
+            if not torch.allclose(got.float(), ref.float(),
+                                  rtol=TOL["bfloat16"], atol=TOL["bfloat16"]):
+                raise RuntimeError(f"{tag} decode kernel vs plain at hd "
+                                   f"112: max err {err}")
+            bound, by = attention_bound_ms(q, engine.cache["k"][0], kv_len)
+            log(f"[kernel] decode_attention at {arch}'s step "
+                f"{engine.decode_steps} (B={slots} S={cache_len} H="
+                f"{cfg.n_heads} KVH={cfg.n_kv_heads} hd="
+                f"{cfg.resolved_head_dim}, kv_len {kv_len.tolist()}): "
+                f"max_abs_err={err:.3g} ms={time_ms(decode_attention, sets):.4f}"
+                f" plain_ms={time_ms(decode_attention_ref, sets):.4f} "
+                f"sdpa_ms={time_ms(sdpa_call, sets):.4f} bound_ms="
+                f"{bound:.4f} ({by}); {n_groups} launches per decode step")
+            del sets
+        engine.reset()
+        del engine
+
+    # one prefill's first-token logits, kernels vs plain versions; the
+    # kernels at the inputs that prefill gave them
+    prompt = max((r.prompt for r in reqs()), key=len)
+    pre_rel, seen = prefill_gate(torch, bundle, params, prompt, device,
+                                 f"[{arch}]")
+    if len(seen["ssd_scan"]) != cfg.n_layers \
+            or len(seen["flash_attention"]) != n_groups:
+        raise RuntimeError(f"[{arch}] one prefill launched "
+                           f"{len(seen['ssd_scan'])} scans and "
+                           f"{len(seen['flash_attention'])} flash calls")
+    paths = {"ssd_scan": ssd_case_ms(torch, [a[:5] for a in seen["ssd_scan"]],
+                                     cfg.ssm_chunk, elementwise=False),
+             "flash_attention": flash_case_ms(torch,
+                                              seen["flash_attention"])}
+    for name, r in paths.items():
+        lib = (f"sdpa_ms={r['library_ms']:.4f}" if "library_ms" in r
+               else "no PyTorch call computes the scan")
+        norm = (f"normwise {r['rel']:.3g} (tol y {r['tol_y']}, state "
+                f"{SSD_NORM_TOL['float32']}), ||y|| / ||x|| "
+                f"{r['y_over_x']:.3g} " if "rel" in r else "")
+        log(f"[kernel] {name} at one {len(prompt)}-token prefill's "
+            f"{len(seen[name])} launches (per launch, averaged): "
+            f"max_abs_err={r['err']:.3g} {norm}ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} {lib} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}); eager call with host launch cost "
+            f"{r['host_ms']:.4f} ms")
+    del seen
+    results.update(paths=paths, prefill_rel=pre_rel,
+                   model=(cfg, bundle, params))
+    return results
+
+
+def phase_mamba(torch, device: str = "cuda", reduced: bool = False,
+                arch: str = "mamba2-780m", n_requests: int = 8,
+                cache_len: int = 1024, lengths=(32, 700)):
+    """mamba2-780m at full width: the launcher behind the router, then a
+    short dense-engine run with its launch and prefill-logits gates."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    size = "--reduced" if reduced else "--no-reduced"
+    log(f"[{arch}] launcher: repro_torch.launch.serve.main --arch {arch} "
+        f"{size} --router --paged")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", arch, size, "--router", "--paged",
+                       "--device", device, "--seed", str(SEED)])
+    log(f"[{arch}] launcher done in {time.perf_counter() - t0:.1f}s")
+    cfg, bundle, params = load_model(torch, device, reduced, arch)
+
+    def reqs():
+        return burst_requests(cfg, 16, lengths)[:n_requests]
+    engine = ServeEngine(bundle, params, EngineConfig(
+        slots=8, cache_len=cache_len, pad_to=1, max_prefill_batch=8),
+        device=device)
+    done, wall, counts, stats = engine_run(torch, engine, reqs)
+    if len(done) != n_requests or not all(r.done and len(r.out) == 16
+                                          for r in done):
+        raise RuntimeError(f"[{arch}] not every request finished")
+    check_launches(counts, {"ssd_scan": stats["prefill_calls"] * cfg.n_layers,
+                            "flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0})
+    n_tok = sum(len(r.out) for r in done)
+    log(f"[{arch}] engine: {len(done)} requests, max_new 16, slots 8, "
+        f"cache_len {cache_len}: {n_tok} tokens in {wall:.3f}s = "
+        f"{n_tok / wall:.1f} tok/s; stats {stats}; ssd_scan launches "
+        f"{counts['ssd_scan']} (= {stats['prefill_calls']} x "
+        f"{cfg.n_layers}); its decode step runs no kernel (no attention), "
+        f"so only its prefill has a logits gate")
+    prompt = max((r.prompt for r in reqs()), key=len)
+    pre_rel, seen = prefill_gate(torch, bundle, params, prompt, device,
+                                 f"[{arch}]")
+    r = ssd_case_ms(torch, [a[:5] for a in seen["ssd_scan"]], cfg.ssm_chunk,
+                    elementwise=False)
+    log(f"[kernel] ssd_scan at one {len(prompt)}-token {arch} prefill's "
+        f"{len(seen['ssd_scan'])} launches (per launch, averaged): "
+        f"max_abs_err={r['err']:.3g} normwise {r['rel']:.3g} (tol y "
+        f"{r['tol_y']}, state {SSD_NORM_TOL['float32']}), "
+        f"||y|| / ||x|| {r['y_over_x']:.3g} ms={r['ms']:.4f} plain_ms="
+        f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+        f"({r['bound_by']})")
+    return dict(counts=counts, stats=stats, tok_s=n_tok / wall,
+                prefill_rel=pre_rel, path=r)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1218,6 +1831,8 @@ def main() -> int:
 
     phase_kernels(torch, decode_attention, decode_attention_ref)
     phase_paged_kernels(torch)
+    phase_flash_kernels(torch)
+    phase_ssd_kernels(torch)
     launches, path, served = phase_serve(torch)
     paged_launches, paged_path = phase_paged_serve(torch, served["model"],
                                                    served["tokens"])
@@ -1227,6 +1842,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_conv_kernels(torch)
     conv_launches, conv_path, ecg = phase_ecg(torch)
+    del ecg["winner"]
+    torch.cuda.empty_cache()
+    zamba = phase_hybrid(torch)
+    del zamba["model"]
+    torch.cuda.empty_cache()
+    mamba = phase_mamba(torch)
+    zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
         "name": "decode_attention",
@@ -1276,9 +1898,45 @@ def main() -> int:
                    "forward's six convs at batch 256; max_abs_err also "
                    "over one BN re-estimation's and one evaluation's "
                    "launches without ReLU",
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:68",
+        "launches": zc["ssd_scan"],
+        "max_abs_err": zp["ssd_scan"]["err"],
+        "rel_err": zp["ssd_scan"]["rel"],
+        "ms": zp["ssd_scan"]["ms"],
+        "plain_ms": zp["ssd_scan"]["plain_ms"],
+        "bound_ms": zp["ssd_scan"]["bound_ms"],
+        "bound_by": zp["ssd_scan"]["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes the SSD scan; launches "
+                   "from zamba2-7b's dense engine run, times per launch "
+                   "averaged over one prefill's 81 scans; rel_err is the "
+                   "largest normwise error of y and the state there, the "
+                   "gate (max_abs_err is small only because y is)",
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+        "launches": zc["flash_attention"],
+        "max_abs_err": zp["flash_attention"]["err"],
+        "ms": zp["flash_attention"]["ms"],
+        "plain_ms": zp["flash_attention"]["plain_ms"],
+        "bound_ms": zp["flash_attention"]["bound_ms"],
+        "bound_by": zp["flash_attention"]["bound_by"],
+        "library_ms": zp["flash_attention"]["library_ms"],
+        "library": "scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True); launches from zamba2-7b's dense engine "
+                   "run, times per launch averaged over one prefill's 13 "
+                   "shared-block applications (hd 112)",
     }]
-    log(f"[done] phases 3-9 in {time.perf_counter() - t_total:.1f}s; ecg "
-        f"rates {ecg['rates']}")
+    log(f"[done] phases 3-11 in {time.perf_counter() - t_total:.1f}s; ecg "
+        f"rates {ecg['rates']}; zamba2-7b tok/s dense "
+        f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
+        f" mamba2-780m tok/s {mamba['tok_s']:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants.
 
 Mirrors ``repro/configs/__init__.py``.  Every arch id of the reference is
-known here, but only the dense families this port serves have a config
-module; the others raise ``NotImplementedError`` until their slice lands.
+known here, but only the families this port serves (dense, SSM and
+hybrid) have a config module; the others raise ``NotImplementedError``
+until their slice lands.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ ARCH_MODULES: Dict[str, str] = {
 }
 
 ALL_ARCHS: List[str] = list(ARCH_MODULES)
-PORTED_ARCHS: List[str] = ["qwen2-0.5b", "qwen3-4b"]
+PORTED_ARCHS: List[str] = ["qwen2-0.5b", "qwen3-4b", "mamba2-780m",
+                            "zamba2-7b"]
 
 
 def get_config(arch: str) -> ModelConfig:

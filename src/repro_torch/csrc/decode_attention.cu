@@ -37,7 +37,12 @@
 // Design: one thread block per (b, kv_head).  Its `rep` query rows stay in
 // registers; the block loops over the cache only up to kv_len[b] (the TPU
 // kernel's block skip comes for free).  G lanes share one cache row, each
-// reading 16 bytes of it; the block's kThreads / G lane groups each run an
+// reading 16 bytes of it; G is HD / (16 bytes) rounded up to a power of
+// two, so that a row maps onto lanes of one warp and the shuffles stay
+// inside it (hd 112, zamba2-7b's: 14 of 16 lanes in bf16, 28 of 32 in f32;
+// the lanes past HD load nothing, hold zeros and store nothing, and for a
+// power-of-two HD no lane idles and the arithmetic is unchanged).  The
+// block's kThreads / G lane groups each run an
 // online softmax over their own interleaved subset of positions, and the
 // groups' (m, l, acc) states are merged once at the end, in group order,
 // through shared memory.  No atomics: the reduction order depends only on
@@ -60,6 +65,12 @@ constexpr int kThreads = 128;
 // Most block-table entries one row may have: the table lives in dynamic
 // shared memory beside the (<= 34 KB) static merge buffers, under 48 KB.
 constexpr int kMaxTableBlocks = 2048;
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
 
 // Where a row's cache positions live.  Dense: nb = 0, span = S.  Paged:
 // tables (B, nb) int32 into a pool of `pages` blocks of `bs` positions.
@@ -117,12 +128,13 @@ __global__ void __launch_bounds__(kThreads)
                             T* __restrict__ out, Layout lay, int KVH,
                             int rep) {
   constexpr int P = Pack<T>::N;        // elements per lane per cache row
-  constexpr int G = HD / P;            // lanes sharing one cache row
+  constexpr int GL = HD / P;           // lanes holding a slice of the row
+  constexpr int G = pow2_at_least(GL); // lanes sharing one cache row
   constexpr int NG = kThreads / G;     // lane groups in the block
   // keys each group takes per step: fewer for wide REP to stay in registers
   constexpr int KPS = (REP * P >= 64) ? 2 : 4;
   constexpr int STEP = NG * KPS;       // positions the block covers per step
-  static_assert(HD % P == 0 && G <= 32 && 32 % G == 0,
+  static_assert(HD % P == 0 && G <= 32,
                 "a cache row must map onto lanes of one warp");
 
   __shared__ float sm_m[NG][REP];
@@ -135,6 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % G;
   const int grp = threadIdx.x / G;
   const int d0 = lane * P;
+  const bool live = lane < GL;         // false only past HD (hd 112)
   const int H = KVH * rep;
   const int len = max(0, min(kv_len[b], lay.span));
   const float sqrt_hd = sqrtf(static_cast<float>(HD));
@@ -142,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
   float qr[REP][P];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
-    if (r < rep) {
+    if (r < rep && live) {
       load_pack(q + (static_cast<size_t>(b) * H + g * rep + r) * HD + d0,
                 qr[r]);
 #pragma unroll
@@ -190,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int u = 0; u < KPS; ++u) {
       const int j = j0 + u;
-      if (j < len) {
+      if (j < len && live) {
         const size_t at = position(j) * row;
         load_pack(kp + at, kf[u]);
         load_pack(vp + at, vf[u]);
@@ -257,10 +270,12 @@ __global__ void __launch_bounds__(kThreads)
       sm_l[grp][r] = l[r];
     }
   }
+  if (live) {
 #pragma unroll
-  for (int r = 0; r < REP; ++r) {
+    for (int r = 0; r < REP; ++r) {
 #pragma unroll
-    for (int e = 0; e < P; ++e) sm_acc[grp][r][d0 + e] = acc[r][e];
+      for (int e = 0; e < P; ++e) sm_acc[grp][r][d0 + e] = acc[r][e];
+    }
   }
   __syncthreads();
 
@@ -326,6 +341,9 @@ cudaError_t launch_t(const void* q, const void* k, const void* v,
     case 64:
       return launch_hd<T, 64, PAGED>(qt, kt, vt, kv_len, ot, B, lay, KVH, rep,
                                      stream);
+    case 112:
+      return launch_hd<T, 112, PAGED>(qt, kt, vt, kv_len, ot, B, lay, KVH,
+                                      rep, stream);
     case 128:
       return launch_hd<T, 128, PAGED>(qt, kt, vt, kv_len, ot, B, lay, KVH,
                                       rep, stream);

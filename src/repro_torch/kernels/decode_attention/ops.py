@@ -23,7 +23,7 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref,
 )
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 MAX_REP = 8
 MAX_TABLE_BLOCKS = 2048     # kMaxTableBlocks in csrc/decode_attention.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

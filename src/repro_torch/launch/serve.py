@@ -14,6 +14,12 @@ cpu`` is given:
       --no-reduced --engine --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --no-reduced --router --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --no-reduced --engine --paged
+
+The SSM and hybrid families (mamba2-780m, zamba2-7b) prefill exact-length
+buckets: their states fold every prompt token, so ``pad_to`` is 1 for
+them.
 
 ``--reduced`` (the default) serves the same-family smoke config;
 ``--no-reduced`` serves the published widths in the config's dtype.

@@ -2,11 +2,13 @@
 
 Counterpart of ``repro/models/attention.py`` for the dense LM family:
 grouped KV heads (GQA/MQA), qk-norm (qwen3), QKV bias (qwen2) and plain
-RoPE.  Prefill and training run :func:`chunked_attention` in plain
-PyTorch, as the reference runs its jnp path there.  Every decode path, the
-engine's slotted and paged steps and the scalar step of its oracle, goes
-through ``kernels/decode_attention``: the hand-written CUDA kernel for
-CUDA tensors, its plain version on the CPU.
+RoPE.  Training runs :func:`chunked_attention` in plain PyTorch, as the
+reference runs its jnp path there.  Prefill's causal full-sequence product
+goes through ``kernels/flash_attention``, and every decode path, the
+engine's slotted and paged steps and the scalar step of its oracle,
+through ``kernels/decode_attention``: the hand-written CUDA kernels for
+CUDA tensors, their plain versions on the CPU (and, for prefill, under
+autograd: the flash kernel has no backward).
 
 Decode writes the new K/V row into the cache or pool *in place* (the
 reference's ``dynamic_update_slice`` and ``.at[].set`` return new arrays);
@@ -25,6 +27,7 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention,
     paged_decode_attention,
 )
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
@@ -204,14 +207,19 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
                       use_rope: bool = True):
     """Prefill: returns (out, (k_cache, v_cache)) with caches padded to
     ``cache_len`` so decode can write in place (no pad, and no copy, when
-    ``cache_len`` is the prompt length, as for the paged engine)."""
+    ``cache_len`` is the prompt length, as for the paged engine).  The
+    causal product runs the flash-attention op; the reference runs
+    ``chunked_attention``, the same function."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
         if positions is None:
             positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
-    out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    else:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     pad = cache_len - s
     kc = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
     vc = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v

@@ -1,7 +1,8 @@
 """ModelBundle: one functional API over the ported architecture families.
 
 Counterpart of ``repro/models/registry.py``, holding only the fields the
-serving path reads.  Family dispatch happens once, here.
+serving path reads.  Family dispatch happens once, here: the dense LM
+family, and the SSM and hybrid families (mamba2, zamba2).
 
 * ``init(seed, device) -> params``
 * ``apply_train(params, batch) -> (logits, aux)`` — full teacher-forced pass
@@ -21,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as M_hybrid
 from repro_torch.models import transformer as M_lm
 
 
@@ -110,6 +112,64 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
     )
 
 
+def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
+    def apply_train(params, batch):
+        return M_hybrid.hybrid_forward(params, cfg, tokens=batch["tokens"])
+
+    def prefill(params, batch):
+        return M_hybrid.hybrid_prefill(params, cfg, tokens=batch["tokens"],
+                                       cache_len=batch["cache_len"])
+
+    def decode_step(params, cache, batch):
+        return M_hybrid.hybrid_decode_step(params, cache, batch["tokens"],
+                                           cfg)
+
+    def prefill_slotted(params, batch):
+        return M_hybrid.hybrid_prefill_slotted(
+            params, cfg, tokens=batch["tokens"], lens=batch["lens"],
+            cache_len=batch["cache_len"])
+
+    def decode_slotted(params, cache, batch):
+        return M_hybrid.hybrid_decode_step_slotted(
+            params, cache, batch["tokens"], batch["active"], cfg)
+
+    def prefill_paged(params, batch):
+        return M_hybrid.hybrid_prefill_paged(
+            params, cfg, tokens=batch["tokens"], lens=batch["lens"])
+
+    def decode_paged(params, cache, batch):
+        return M_hybrid.hybrid_decode_step_paged(
+            params, cache, batch["tokens"], batch["active"], cfg)
+
+    def make_paged_cache(slots, cache_len, n_blocks, block_size,
+                         device=None):
+        return M_hybrid.init_hybrid_paged_cache(
+            cfg, slots, cache_len, n_blocks, block_size, device=device)
+
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda seed=0, device=None: M_hybrid.init_hybrid(seed, cfg,
+                                                              device),
+        apply_train=apply_train,
+        prefill=prefill,
+        decode_step=decode_step,
+        make_cache=lambda b, s, device=None: M_hybrid.init_hybrid_cache(
+            cfg, b, s, device=device),
+        cache_specs=lambda: M_hybrid.hybrid_cache_specs(cfg),
+        prefill_slotted=prefill_slotted,
+        decode_slotted=decode_slotted,
+        make_slot_cache=lambda b, s, device=None:
+            M_hybrid.init_hybrid_slot_cache(cfg, b, s, device=device),
+        prefill_pads=False,
+        prefill_paged=prefill_paged,
+        decode_paged=decode_paged,
+        make_paged_cache=make_paged_cache,
+        paged_cache_specs=lambda: M_hybrid.hybrid_paged_cache_specs(cfg),
+    )
+
+
 def build_model(cfg: ModelConfig) -> ModelBundle:
+    if cfg.family in ("ssm", "hybrid"):
+        return _hybrid_bundle(cfg)
     M_lm.check_family(cfg)
     return _lm_bundle(cfg)

@@ -42,8 +42,8 @@ from repro_torch.models.mlp import init_mlp, mlp_block
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (this slice serves "
-            f"the dense LM family)")
+            f"family {cfg.family!r} is not yet ported (this module serves "
+            f"the dense LM family; ssm and hybrid are models/hybrid.py)")
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,12 @@ barrier), prefill runs in padding-bucketed batches (serve/buckets.py), and
 decode is ONE step over all slots per iteration — every batch row is a
 slot at its own sequence position (``cache["lens"]``), so mixed prompt and
 output lengths coexist in flight.  On CUDA every decode step runs the
-hand-written decode-attention kernel once per layer: the dense kernel over
+hand-written decode-attention kernel once per attention layer (once per
+shared-block application for the hybrid family): the dense kernel over
 slot caches, or, with ``EngineConfig(paged=True)``, the paged kernel over a
-block pool.
+block pool.  Prefill runs the flash-attention kernel once per attention
+layer and, for the SSM and hybrid families, the SSD scan kernel once per
+Mamba-2 layer, on exact-length buckets (``pad_to=1``).
 
 The cache lives on the engine's device and is updated *in place*: prefill
 rows are copied into their slots (or their pool blocks) with
@@ -139,10 +142,15 @@ class ServeEngine:
             n_blocks = cfg.n_blocks or cfg.slots * max_blocks
             self.pool = BlockPool(n_blocks, cfg.block_size, cfg.slots,
                                   max_blocks)
-            # pool-resident leaves are spliced block/offset-wise
-            self._pool_specs = {k: v for k, v in
-                                bundle.paged_cache_specs().items()
-                                if "blocks" in v}
+            # pool-resident leaves are spliced block/offset-wise; per-slot
+            # leaves (hybrid conv/SSM states) splice at their batch axis
+            pspecs = bundle.paged_cache_specs()
+            self._pool_specs = {k: v for k, v in pspecs.items()
+                                if k not in ("lens", "tables")
+                                and "blocks" in v}
+            self._row_specs = {k: v for k, v in pspecs.items()
+                               if k not in ("lens", "tables")
+                               and "blocks" not in v}
             self._tables_dirty = False
         self.reset()
 
@@ -304,22 +312,28 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _splice(self, cache1: Dict[str, Any], slot_idx: np.ndarray) -> None:
-        """Copy each prefill row's cache into its slot, in place.  Pad rows
-        carry the out-of-range slot index ``slots``; the reference drops
-        them with ``mode="drop"``.  Torch has no drop mode (an out-of-range
-        index raises on the CPU and corrupts memory on CUDA), so only the
+    def _splice_rows(self, specs: Dict[str, Any], cache1: Dict[str, Any],
+                     slot_idx: np.ndarray) -> None:
+        """Copy each prefill row's ``specs`` leaves and length into its
+        slot, in place, at each leaf's batch axis.  Pad rows carry the
+        out-of-range slot index ``slots``; the reference drops them with
+        ``mode="drop"``.  Torch has no drop mode (an out-of-range index
+        raises on the CPU and corrupts memory on CUDA), so only the
         in-range rows are selected.  Never clamp: a clamped pad row would
         overwrite a live slot."""
         keep = np.flatnonzero(slot_idx < self.cfg.slots)
         src = self._tensor(keep.astype(np.int64))
         dst = self._tensor(slot_idx[keep].astype(np.int64))
-        for key, spec in self._specs.items():
+        for key, spec in specs.items():
             ax = spec.index("batch")
             self.cache[key].index_copy_(ax, dst,
                                         cache1[key].index_select(ax, src))
         self.cache["lens"].index_copy_(0, dst,
                                        cache1["lens"].index_select(0, src))
+
+    def _splice(self, cache1: Dict[str, Any], slot_idx: np.ndarray) -> None:
+        """Copy each prefill row's cache into its slot, in place."""
+        self._splice_rows(self._specs, cache1, slot_idx)
 
     def _splice_paged(self, rows: Dict[str, Any], slot_idx: np.ndarray,
                       blk: np.ndarray, off: np.ndarray) -> None:
@@ -327,7 +341,9 @@ class ServeEngine:
         position p goes to block ``blk[r, p]`` at offset ``off[r, p]``.
         Pad rows and pad-tail positions carry the sentinel block, which the
         reference drops with ``mode="drop"``; here they are selected away
-        before ``index_put_``, as :meth:`_splice` does with pad rows."""
+        before ``index_put_``, as :meth:`_splice_rows` does with pad rows.
+        Per-slot leaves (hybrid conv/SSM states) and the lengths go to the
+        rows' slots."""
         r_idx, p_idx = np.nonzero(blk < self.pool.n_blocks)
         src = (self._tensor(r_idx), self._tensor(p_idx))
         dst = (self._tensor(blk[r_idx, p_idx].astype(np.int64)),
@@ -336,10 +352,7 @@ class ServeEngine:
             ax = spec.index("blocks")
             lead = (slice(None),) * ax
             self.cache[key][lead + dst] = rows[key][lead + src]
-        keep = np.flatnonzero(slot_idx < self.cfg.slots)
-        self.cache["lens"].index_copy_(
-            0, self._tensor(slot_idx[keep].astype(np.int64)),
-            rows["lens"].index_select(0, self._tensor(keep)))
+        self._splice_rows(self._row_specs, rows, slot_idx)
 
     def _block_offsets(self, b):
         """(B, L) block / offset index arrays for a prefill bucket: row r,

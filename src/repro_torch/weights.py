@@ -2,9 +2,12 @@
 
 The only place where the two packages' layouts are mapped.  For the LM
 family ``repro`` stacks every layer's params on a leading ``layers`` axis
-(for ``lax.scan``); the port keeps a list of per-layer dicts.  An ECG
-candidate is a list of per-layer dicts on both sides.  Leaf names and
-``(in, out)`` matrix layouts are the same on both sides.
+(for ``lax.scan``); the port keeps a list of per-layer dicts.  For the SSM
+and hybrid families it stacks ``groups`` as ``(n_groups, period, ...)`` and
+``tail`` as ``(tail, ...)``; the port keeps a list of lists and a list, and
+``shared`` once on both sides.  An ECG candidate is a list of per-layer
+dicts on both sides.  Leaf names and ``(in, out)`` matrix layouts are the
+same on both sides.
 """
 from __future__ import annotations
 
@@ -31,20 +34,44 @@ def _map(tree: Any, fn) -> Any:
     return fn(tree)
 
 
+def _unstack(tree: Any, n: int, dev: torch.device) -> List[Any]:
+    """A tree stacked on a leading axis of ``n`` -> a list of ``n`` trees."""
+    return [_map(tree, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
+            for i in range(n)]
+
+
+def _leading(tree: Any) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
                     ) -> Dict[str, Any]:
-    """``tree`` is the reference's ``init_lm`` params with numpy leaves
-    (``jax.tree.map(np.asarray, params)``).  Returns the port's params on
-    ``device``, each leaf in its source dtype."""
+    """``tree`` is the reference's ``init_lm`` or ``init_hybrid`` params
+    with numpy leaves (``jax.tree.map(np.asarray, params)``).  Returns the
+    port's params on ``device``, each leaf in its source dtype."""
     dev = resolve_device(device)
+    if "layers" not in tree:                  # SSM / hybrid families
+        out = {k: _tensor(tree[k], dev) for k in ("embed", "unembed")}
+        out["final_norm"] = _map(tree["final_norm"],
+                                 lambda a: _tensor(a, dev))
+        if "groups" in tree:
+            groups = tree["groups"]
+            per_group = [_map(groups, lambda a, g=g: np.asarray(a)[g])
+                         for g in range(_leading(groups))]
+            out["groups"] = [_unstack(t, _leading(t), dev)
+                             for t in per_group]
+            out["shared"] = _map(tree["shared"], lambda a: _tensor(a, dev))
+        if "tail" in tree:
+            out["tail"] = _unstack(tree["tail"], _leading(tree["tail"]), dev)
+        return out
     layers = tree["layers"]
     if "moe" in layers:
         raise NotImplementedError("MoE params are not yet ported")
-    n_layers = np.asarray(layers["attn_norm"]["scale"]).shape[0]
     out: Dict[str, Any] = {
         "embed": _tensor(tree["embed"], dev),
-        "layers": [_map(layers, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
-                   for i in range(n_layers)],
+        "layers": _unstack(layers, _leading(layers), dev),
         "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, dev)),
     }
     if "unembed" in tree:

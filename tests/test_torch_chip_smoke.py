@@ -17,12 +17,15 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
+from torch_parity import one_thread  # noqa: E402,F401 (a fixture)
 
 
-def _counted(name):
+def _counted(name, module=ops, ref_name=None):
     """The CPU path launches nothing: count its calls as launches."""
-    op, ref = getattr(ops, name), getattr(ops, f"{name}_ref")
+    op = getattr(module, name)
+    ref = getattr(module, ref_name or f"{name}_ref")
 
     def call(*args):
         op.launches += 1
@@ -43,8 +46,11 @@ def served():
         mp.setattr(chip_smoke, "eager_ms", lambda fn, sets: 0.0)
         for name in ("decode_attention", "paged_decode_attention"):
             mp.setattr(attention, name, _counted(name))
+        mp.setattr(attention, "flash_attention",
+                   _counted("flash_attention", flash_ops))
         mp.setattr(ops.decode_attention, "launches", 0)
         mp.setattr(ops.paged_decode_attention, "launches", 0)
+        mp.setattr(flash_ops.flash_attention, "launches", 0)
         result = chip_smoke.phase_serve(torch, device="cpu", reduced=True)
         yield result, lines
 
@@ -53,6 +59,8 @@ def test_serve_phase_runs_on_cpu(served):
     (launches, path, out), lines = served
     text = "\n".join(lines)
     assert "16 requests" in text and "rel_err=0 " in text
+    assert "flash_attention 48 (= 16 x 3)" in text
+    assert "[serve] prefill A/B in this process" in text
     assert launches > 0 and launches % 3 == 0        # steps x 3 layers
     assert path["bound_by"] == "bytes" and path["err"] == 0.0
     assert len(path["kv_len"]) == 8
@@ -181,3 +189,15 @@ def test_ecg_phase_gates_on_launches(ecg_patched, monkeypatch):
         chip_smoke.phase_ecg(torch, device="cpu", n_samples=20,
                              train_steps=1, train_batch=4, batches=(4,),
                              timed_steps=1)
+
+
+def test_paged_serve_phase_gates_on_flash_launches(served):
+    """A prefill that skips the flash kernel fails phase 5's launch gate."""
+    (_, _, out), _ = served
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(attention, "flash_attention",
+                   flash_ops.flash_attention_ref)
+        with pytest.raises(RuntimeError,
+                           match="flash_attention launched 0 times"):
+            chip_smoke.phase_paged_serve(torch, out["model"], out["tokens"],
+                                         device="cpu", reduced=True)

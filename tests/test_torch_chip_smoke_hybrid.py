@@ -1,0 +1,167 @@
+"""chip_smoke.py's kernel phases 3c-3d and its SSM/hybrid phases 10-11,
+rehearsed on the CPU at toy size.
+
+As in tests/test_torch_chip_smoke.py: the script refuses to run without a
+card, so its phases take a device and the reduced configs, and their
+control flow (kernel vs plain, bounds, launch gates, paged tokens equal to
+dense tokens, the logits gates) is exercised here first.  Timings are
+stubbed: CUDA events exist only on the card; the CPU path launches
+nothing, so each wrapper's calls are counted as launches.
+"""
+import re
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels import ssd as ssd_pkg  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.models import attention, mamba2  # noqa: E402
+from torch_parity import one_thread  # noqa: E402,F401 (a fixture)
+
+
+def _counted(name, module=ops, ref_name=None):
+    """Count a CPU call of ``module.name`` as a launch of its kernel."""
+    op = getattr(module, name)
+    ref = getattr(module, ref_name or f"{name}_ref")
+
+    def call(*args):
+        op.launches += 1
+        return ref(*args)
+    return call
+
+
+@pytest.fixture
+def kernels_patched():
+    """CUDA timing stubbed; the phases log into the returned list."""
+    lines = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "log", lines.append)
+        mp.setattr(torch.cuda, "synchronize", lambda *a: None)
+        mp.setattr(chip_smoke, "time_ms", lambda fn, sets: 0.0)
+        mp.setattr(chip_smoke, "eager_ms", lambda fn, sets: 0.0)
+        yield lines
+
+
+def test_flash_kernel_phase_runs_on_cpu(kernels_patched):
+    """Phase 3c at small shapes: kernel (here the plain path) vs plain,
+    and SDPA agrees with both in f32."""
+    chip_smoke.phase_flash_kernels(torch, device="cpu", shapes={
+        "gqa7": (14, 2, 64), "mha112": (4, 4, 112)}, lengths=(8, 40))
+    assert len(kernels_patched) == 8
+    for line in kernels_patched:
+        assert "max_abs_err=0 " in line
+        if "float32" in line:
+            assert float(re.search(r"sdpa err ([0-9.e+-]+)", line)[1]) < 1e-5
+
+
+def test_ssd_kernel_phase_runs_on_cpu(kernels_patched):
+    """Phase 3d at small shapes (timed, and an untimed edge shape)."""
+    chip_smoke.phase_ssd_kernels(torch, device="cpu",
+                                 cases=[(2, 37, 8, 16, 1, 16, 16)],
+                                 edge_cases=[(2, 96, 6, 8, 3, 8, 24)])
+    assert len(kernels_patched) == 4
+    assert all("max_abs_err=0, 0 of the tolerance" in line
+               for line in kernels_patched)
+    assert sum("no PyTorch call computes the scan" in line
+               for line in kernels_patched) == 2
+
+
+def test_flash_and_ssd_bounds_count_bytes_and_flops():
+    q = torch.empty(1, 700, 32, 112, dtype=torch.bfloat16)
+    k = torch.empty(1, 700, 32, 112, dtype=torch.bfloat16)
+    ms, by = chip_smoke.flash_bound_ms(q, k)
+    t_ops = (4 * 112 * 32 * 700 * 701 // 2
+             / chip_smoke.PEAK_FLOPS["bfloat16"] * 1e3)
+    t_bytes = 4 * q.numel() * 2 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert by == "bytes" and t_bytes > t_ops
+    assert ms == pytest.approx(t_bytes)
+    x = torch.empty(1, 700, 112, 64)
+    bm = torch.empty(1, 700, 1, 64)
+    ms, by = chip_smoke.ssd_bound_ms(x, bm)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 700 * 112 * 64 * 64
+                               / chip_smoke.PEAK_FLOPS["float32"] * 1e3)
+
+
+def test_ssd_gate_at_the_main_path_scale_sees_a_zero_output(kernels_patched):
+    """At the served models' random init the scan's y is tiny beside x, as
+    here with B and C scaled by 1e-3: a kernel that wrote zeros for y
+    stays inside the elementwise atol, and the normwise gate the main
+    path runs refuses it."""
+    gen = torch.Generator().manual_seed(0)
+    x, dt, a, bm, cm = chip_smoke.ssd_inputs(torch, 1, 40, 8, 16, 1, 16,
+                                             torch.float32, "cpu", gen)
+    args = (x, dt, a, bm * 1e-3, cm * 1e-3)
+    y, state = ssd_ops.ssd_chunked(*args, 16)
+    assert float(y.abs().max()) < chip_smoke.SSD_TOL["float32"]
+    out = chip_smoke.ssd_case_ms(torch, [args], 16, timed=False,
+                                 elementwise=False)
+    assert out["rel"] == 0.0 and out["y_over_x"] < 1e-4
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ssd_pkg, "ssd_scan",
+                   lambda *a: (torch.zeros_like(y), state))
+        with pytest.raises(RuntimeError, match="on y: normwise 1 "):
+            chip_smoke.ssd_case_ms(torch, [args], 16, timed=False,
+                                   elementwise=False)
+
+
+@pytest.fixture
+def hybrid_patched(kernels_patched):
+    """Phases 10-11 on the CPU: every kernel wrapper's calls counted as
+    launches."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("decode_attention", "paged_decode_attention"):
+            mp.setattr(attention, name, _counted(name))
+        mp.setattr(attention, "flash_attention",
+                   _counted("flash_attention", flash_ops))
+        mp.setattr(mamba2, "ssd_scan",
+                   _counted("ssd_scan", ssd_ops, "ssd_chunked"))
+        yield kernels_patched
+
+
+def test_hybrid_phase_runs_on_cpu(hybrid_patched):
+    """Phase 10 on reduced zamba2-7b: the launch gates of the dense and
+    the paged engine, paged tokens = dense tokens, the logits gates, and
+    both kernels at one prefill's inputs."""
+    out = chip_smoke.phase_hybrid(torch, device="cpu", reduced=True,
+                                  cache_len=64, lengths=(4, 40))
+    text = "\n".join(hybrid_patched)
+    dense, paged = out["dense"], out["paged"]
+    assert dense["tokens"] == paged["tokens"]
+    for run, decode in ((dense, "decode_attention"),
+                        (paged, "paged_decode_attention")):
+        assert run["counts"]["ssd_scan"] == 13 * run["stats"]["prefill_calls"]
+        assert run["counts"]["flash_attention"] == \
+            2 * run["stats"]["prefill_calls"]
+        assert run["counts"][decode] == 2 * run["stats"]["decode_steps"]
+    assert "equal to the dense engine's for 16/16 requests" in text
+    assert out["prefill_rel"] == 0.0
+    assert out["paths"]["ssd_scan"]["err"] == 0.0
+    assert out["paths"]["flash_attention"]["bound_by"] in ("bytes",
+                                                           "operations")
+    assert text.count("rel_err=0 ") == 3    # two decode steps, one prefill
+
+
+def test_hybrid_phase_gates_on_ssd_launches(hybrid_patched):
+    """A prefill whose scans skip the kernel fails the launch gate."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mamba2, "ssd_scan", ssd_ops.ssd_chunked)
+        with pytest.raises(RuntimeError, match="ssd_scan launched 0 times"):
+            chip_smoke.phase_hybrid(torch, device="cpu", reduced=True,
+                                    cache_len=64, lengths=(4, 40))
+
+
+def test_mamba_phase_runs_on_cpu(hybrid_patched):
+    """Phase 11 on reduced mamba2-780m: SSD launches = 3 layers x prefill
+    calls, no attention kernel, the prefill logits gate."""
+    out = chip_smoke.phase_mamba(torch, device="cpu", reduced=True,
+                                 cache_len=64, lengths=(4, 40))
+    assert out["counts"]["ssd_scan"] == 3 * out["stats"]["prefill_calls"]
+    assert out["counts"]["flash_attention"] == 0
+    assert out["prefill_rel"] == 0.0 and out["path"]["err"] == 0.0

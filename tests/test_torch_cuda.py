@@ -6,7 +6,10 @@ Without a card every test skips (the fixture decides, at run time).
 Tolerances: f32 1e-5 (both sides sum in f32, in different orders); bf16
 2e-2 for attention and 3e-2 for the conv (the reference's own kernel
 tests' tolerances: the output's single bf16 rounding can land on either
-side).
+side).  The SSD scan: 1e-4 for y and the state, the reference's own
+tolerance between its chunked scan and the step-by-step recurrence
+(tests/test_kernels.py), which is what the kernel runs against the
+chunked plain version; bf16 y 2e-2, one output rounding.
 """
 import pytest
 import torch
@@ -18,6 +21,11 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_ref,
+)
+from repro_torch.kernels.ssd import ssd_chunked, ssd_scan
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -43,7 +51,7 @@ def _inputs(b, s, kvh, rep, hd, lens, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("rep", [1, 4, 7, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 def test_kernel_matches_plain_version(cuda_device, dtype, rep, hd):
     s = 203                     # no multiple of any tile
     lens = [1, s, 37, 128, 129, 64]
@@ -117,7 +125,7 @@ def _paged_inputs(lens, nb, bs, kvh, rep, hd, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("rep", [1, 4, 7, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 @pytest.mark.parametrize("bs", [16, 5])
 def test_paged_kernel_matches_plain_version(cuda_device, dtype, rep, hd, bs):
     """Shuffled, shared-out pages; kv_len 1, the full span, past the span
@@ -149,6 +157,24 @@ def test_paged_kernel_equals_dense_kernel_on_identity_tables(cuda_device,
                           device=cuda_device).reshape(b, nb)
     paged = paged_decode_attention(q, k.reshape(b * nb, bs, 8, 128),
                                    v.reshape(b * nb, bs, 8, 128), tables, kv)
+    assert torch.equal(paged, decode_attention(q, k, v, kv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_equals_dense_kernel_at_head_dim_112(cuda_device,
+                                                          dtype):
+    """zamba2-7b's shared block (MHA, hd 112, idle lanes past hd): the
+    identity-table equality holds there too."""
+    lens = [300, 5, 1024, 77]
+    b, s, bs = len(lens), 1024, 16
+    nb = s // bs
+    q, k, v, kv = _inputs(b, s, 32, 1, 112, lens, dtype, cuda_device)
+    tables = torch.arange(b * nb, dtype=torch.int32,
+                          device=cuda_device).reshape(b, nb)
+    paged = paged_decode_attention(q, k.reshape(b * nb, bs, 32, 112),
+                                   v.reshape(b * nb, bs, 32, 112), tables, kv)
     assert torch.equal(paged, decode_attention(q, k, v, kv))
 
 
@@ -268,3 +294,156 @@ def test_conv_launches_count_no_grad_layers_only(cuda_device):
     with torch.no_grad():
         apply_layer(params, spec, x, train=True)
     assert dwsep_conv1d.launches == before + 2
+
+
+# ------------------------------------------------------------ SSD scan
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# (B, L, H, P, G, N): zamba2-7b and mamba2-780m at full width, ragged and
+# tiny L, and the reference kernel tests' shapes (G > 1)
+SSD_SHAPES = [
+    (1, 700, 112, 64, 1, 64),
+    (2, 256, 112, 64, 1, 64),
+    (1, 300, 48, 64, 1, 128),
+    (3, 1, 112, 64, 1, 64),
+    (1, 3, 48, 64, 1, 128),
+    (2, 64, 4, 16, 1, 16),
+    (1, 128, 8, 32, 2, 32),
+    (2, 96, 6, 8, 3, 8),
+]
+
+
+def _ssd_inputs(b, length, h, p, g, n, dtype, device, seed=0, dt_hi=0.1):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, length, h, p, generator=gen)
+    dt = 1e-3 + (dt_hi - 1e-3) * torch.rand(b, length, h, generator=gen)
+    a_neg = -(1.0 + 15.0 * torch.rand(h, generator=gen))
+    bm = torch.randn(b, length, g, n, generator=gen)
+    cm = torch.randn(b, length, g, n, generator=gen)
+    return (x.to(device, dtype), dt.to(device), a_neg.to(device),
+            bm.to(device, dtype), cm.to(device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,length,h,p,g,n", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_version(cuda_device, b, length, h, p, g,
+                                          n, dtype):
+    args = _ssd_inputs(b, length, h, p, g, n, dtype, cuda_device)
+    before = ssd_scan.launches
+    y, state = ssd_scan(*args, 256)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_state = ssd_chunked(*args, 256)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(state, want_state, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_large_steps(cuda_device):
+    """Steps whose chunk-wide decay would overflow exp in the chunked
+    form's s > t half: finite and equal to the plain version."""
+    args = _ssd_inputs(2, 200, 8, 32, 2, 32, torch.float32, cuda_device,
+                       dt_hi=5.0)
+    y, state = ssd_scan(*args, 64)
+    want_y, want_state = ssd_chunked(*args, 64)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    torch.testing.assert_close(y, want_y, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(state, want_state, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rows_do_not_depend_on_the_batch(cuda_device):
+    args = _ssd_inputs(3, 300, 16, 64, 1, 64, torch.bfloat16, cuda_device)
+    y, state = ssd_scan(*args, 256)
+    for r in range(3):
+        one = [t[r:r + 1].contiguous() if t.dim() > 1 else t for t in args]
+        y1, s1 = ssd_scan(*one, 256)
+        assert torch.equal(y1[0], y[r]) and torch.equal(s1[0], state[r])
+
+
+@pytest.mark.cuda
+def test_ssd_and_flash_refuse_what_the_kernels_do_not_take(cuda_device):
+    args = list(_ssd_inputs(1, 8, 4, 16, 1, 12, torch.float32, cuda_device))
+    with pytest.raises(ValueError, match="state size 12"):
+        ssd_scan(*args, 256)
+    q = torch.zeros(1, 8, 4, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 16"):
+        flash_attention(q, q, q)
+
+
+# ------------------------------------------------------- flash attention
+# (B, S, H, KVH, hd): qwen3-4b, qwen2-0.5b (rep 7) and zamba2-7b prefill
+# widths, ragged S, and the reduced configs' hd 32
+FLASH_SHAPES = [
+    (1, 704, 32, 8, 128),
+    (2, 40, 14, 2, 64),
+    (1, 700, 32, 32, 112),
+    (3, 1, 32, 32, 112),
+    (2, 65, 8, 4, 32),
+    (1, 200, 4, 1, 64),
+    (1, 129, 6, 3, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kvh,hd", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_version(cuda_device, b, s, h, kvh, hd,
+                                            dtype):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen).to(cuda_device, dtype)
+               for n in (h, kvh, kvh))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-780m"])
+def test_hybrid_engine_runs_every_kernel(cuda_device, arch):
+    """The reduced hybrid on the card, dense and paged: SSD launches =
+    Mamba layers x prefill calls, flash = shared-block applications x
+    prefill calls, decode = applications x decode steps, and the paged
+    tokens equal the dense ones."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.hybrid import _layout
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine, ServeRequest
+    cfg = reduced_config(arch, dtype="bfloat16")
+    n_groups = _layout(cfg)[0]
+    bundle = build_model(cfg)
+    params = bundle.init(0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in [3, 17, 9, 30, 12]]
+    tokens = []
+    for paged in (False, True):
+        engine = ServeEngine(bundle, params, EngineConfig(
+            slots=3, cache_len=64, pad_to=1, paged=paged, block_size=16),
+            device=cuda_device)
+        counts = [ssd_scan.launches, flash_attention.launches,
+                  decode_attention.launches, paged_decode_attention.launches]
+        done = engine.run([ServeRequest(rid=i, prompt=p, max_new=5)
+                           for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        ssd, flash, dense, pag = (now - was for now, was in zip(
+            [ssd_scan.launches, flash_attention.launches,
+             decode_attention.launches, paged_decode_attention.launches],
+            counts))
+        assert all(r.done and len(r.out) == 5 for r in done)
+        assert ssd == engine.prefill_calls * cfg.n_layers
+        assert flash == engine.prefill_calls * n_groups
+        assert (pag if paged else dense) == engine.decode_steps * n_groups
+        assert (dense if paged else pag) == 0
+        tokens.append([r.out for r in done])
+    assert tokens[0] == tokens[1]

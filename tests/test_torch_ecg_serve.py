@@ -27,7 +27,13 @@ from repro_torch.core.faults import FaultPlan, FaultSpec
 from repro_torch.serve import (ReplicatedWinner, ServableWinner,
                                compile_winner, replicate_winner)
 from repro_torch.weights import candidate_params_from_jax
-from torch_parity import NARROW_GENES, candidate_params, genomes, np_of
+from torch_parity import (  # noqa: F401 (one_thread: a fixture)
+    NARROW_GENES,
+    candidate_params,
+    genomes,
+    np_of,
+    one_thread,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -45,8 +45,8 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import apply_updates, clip_by_global_norm
 from repro_torch.optim.adamw import AdamWState, tree_leaves
 from repro_torch.weights import candidate_params_from_jax
-from torch_parity import (F32_TOL, NARROW_GENES, WIDE_GENES,
-                          candidate_params, genomes, np_of)
+from torch_parity import (F32_TOL, NARROW_GENES, WIDE_GENES,  # noqa: F401
+                          candidate_params, genomes, np_of, one_thread)
 
 QUANT_TOL = dict(rtol=1e-4, atol=1e-4)
 LR = 3e-3

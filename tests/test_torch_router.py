@@ -24,7 +24,7 @@ from repro_torch.serve import (
     greedy_reference,
     loadgen,
 )
-from torch_parity import configs, params
+from torch_parity import configs, one_thread, params  # noqa: F401 (a fixture)
 
 CACHE_LEN = 48
 BS = 8

@@ -22,7 +22,7 @@ from repro_torch.serve import (
     greedy_reference,
 )
 from repro_torch.weights import params_from_jax
-from torch_parity import configs, params
+from torch_parity import configs, one_thread, params  # noqa: F401 (a fixture)
 
 CACHE_LEN = 48
 BURST = [(4, 6), (11, 3), (7, 9), (16, 5), (5, 5), (9, 8), (13, 4), (6, 7)]

@@ -26,7 +26,7 @@ from repro_torch.serve import (
     blocks_for,
     greedy_reference,
 )
-from torch_parity import configs, params
+from torch_parity import configs, one_thread, params  # noqa: F401 (a fixture)
 
 CACHE_LEN = 48
 BS = 8                      # block size used throughout

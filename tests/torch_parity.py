@@ -12,6 +12,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models.transformer import init_lm as jax_init_lm
@@ -20,6 +22,20 @@ from repro_torch.weights import params_from_jax
 
 # rtol/atol for f32 comparisons: torch and XLA sum in different orders
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests, restored after it.  The
+    tests run many small ops, in several worker processes at once; with a
+    thread pool per core in every worker they oversubscribe the cores, and
+    six concurrent runs of tests/test_torch_chip_smoke_hybrid.py took over
+    900 s against 24 s with one thread each.  A module imports this
+    fixture to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # reduced qwen3-4b (qk-norm, untied), reduced qwen2-0.5b (QKV bias, tied),
 # and qwen2-0.5b's own GQA ratio of 7 (not a power of two)
@@ -104,3 +120,35 @@ def candidate_params(jspecs, seed=0, perturb=True):
                 p["bn_var"] = rng.uniform(0.5, 2.0, p["bn_var"].shape
                                           ).astype(np.float32)
     return [{k: jnp.asarray(v) for k, v in p.items()} for p in tree], tree
+
+
+# ------------------------------------------------------ SSM / hybrid path
+
+HYBRID_ARCHS = ["zamba2-7b", "mamba2-780m"]
+
+
+def hybrid_configs(arch):
+    """(repro config, port config): the reduced zamba2-7b (13 layers, two
+    groups of 6 around the shared block, one tail layer) or mamba2-780m
+    (3 tail layers, no shared block)."""
+    return jax_reduced_config(arch), reduced_config(arch)
+
+
+@functools.lru_cache(maxsize=None)
+def hybrid_params(jcfg, seed=0):
+    """(jax params, port params on the CPU) of ``repro``'s ``init_hybrid``,
+    with norm scales, D, the conv bias and dt_bias moved off their init
+    values (exactly 1, 1, 0 and a fixed curve) by a numpy stream."""
+    from repro.models.hybrid import init_hybrid
+    init = jax.jit(lambda key: init_hybrid(key, jcfg))
+    tree = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        if path[-1].key in ("scale", "norm_scale", "D", "conv_b", "dt_bias",
+                            "q_norm", "k_norm"):
+            return (a + rng.normal(0, 0.1, a.shape)).astype(a.dtype)
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(perturb, tree)
+    return jax.tree.map(jnp.asarray, tree), params_from_jax(tree, "cpu")
