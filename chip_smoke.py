@@ -27,6 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B 1 and 4, H 112, P 64, N 64) and mamba2-780m's (H 48, N 128) widths
    for L 1, 3, 255, 256, 700 and 2048, and at the reference tests' edge
    shapes (G > 1); no PyTorch call computes the scan;
+3e. the grouped-matmul kernel of the MoE expert FFN likewise, elementwise
+   and normwise, at dbrx-132b's decode shapes (cap 8: gate/up and down) and
+   prefill shapes (cap 224 and 40), the reference tests' shapes and ragged
+   ones (C 1, 3, 17; D 100; F 72), f32 and bf16, timed beside the plain
+   version, torch.bmm and its bound;
 4. qwen3-4b at its published widths (bf16, random weights from a seed) is
    served: first through the launcher (repro_torch.launch.serve.main), then
    through a ServeEngine with 8 slots and a 1024-token cache answering 16
@@ -86,7 +91,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    the launcher behind the router, then 8 of the requests through the
    dense engine; SSD launches = 48 x prefill calls, the prefill logits
    gate, and the scan normwise at that prefill's inputs;
-12. the last lines are the card (nvidia-smi), a JSON line of every kernel
+12. dbrx-132b at its published widths (d_model 6144, 48 heads, 16 experts
+   of 10752, top-4) cut to 8 of its 40 layers (bf16, random weights from a
+   seed): the launcher on the reduced config (--engine --paged), then the
+   16 requests of phase 4 through a dense ServeEngine (8 slots, 1024-token
+   cache, buckets of 8) and a paged one (16-token blocks, worst-case pool).
+   Gates: every request finishes; gmm launches = 3 x 8 x (prefill calls +
+   decode steps), flash = 8 x prefill calls, decode = 8 x decode steps
+   (dense, then paged); paged tokens equal dense tokens, or the pairs
+   dropped at capacity in the prefill calls that held a differing request
+   explain it (counted by wrapping moe_block from here); the kernel equals
+   gmm_ref normwise at one prefill's and one decode step's own inputs; one
+   decode step's logits equal the same step with gmm_ref swapped in, over
+   the rows whose routing did not flip (flips counted); finite logits.
+   tok/s, the prefill/decode split, kernels a decode step, the idle share,
+   the gmm kernel's share of a decode step's device time, its per-call
+   times at decode and prefill beside torch.bmm and the bound, and the
+   peak device memory are printed;
+13. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -174,6 +196,37 @@ SSD_CASES = ([(b, length, 112, 64, 1, 64, 256) for b in (1, 4)
                 for length in (1, 3, 255, 256, 700, 2048)])
 SSD_EDGE_CASES = [(2, 64, 4, 16, 1, 16, 16), (1, 128, 8, 32, 2, 32, 32),
                   (2, 96, 6, 8, 3, 8, 24)]
+# Grouped matmul, kernel vs plain: the reference's own tolerances
+# (tests/test_kernels.py), elementwise rtol = atol: f32 1e-4 (f32 sums in
+# another order), bf16 5e-2 (the one output rounding lands on either side).
+# Phase 3e scales w by 1/sqrt(D), so outputs are O(1).
+GMM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# The same normwise, ||got - want|| / ||want||, which also holds at the
+# main path's inputs: f32 1e-4; bf16 1e-2 (one output rounding is at most
+# 2^-9 relative, and a tie rounded the other way moves an element by one
+# ulp, 2^-8).
+GMM_NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# (E, C, D, F) of phase 3e: dbrx-132b's decode gate/up and down at cap 8
+# (8 slots) and its prefill gate/up at cap 224 (a 704-token bucket) and 40
+# (128 tokens), timed; the reference tests' shapes and ragged ones, untimed
+GMM_CASES = [(16, 8, 6144, 10752), (16, 8, 10752, 6144),
+             (16, 224, 6144, 10752), (16, 40, 6144, 10752)]
+GMM_EDGE_CASES = [(4, 32, 64, 48), (8, 16, 128, 64), (2, 64, 32, 32),
+                  (3, 1, 100, 72), (2, 3, 100, 72), (2, 17, 100, 72)]
+# Phase 12 serves dbrx-132b at its published widths cut to 8 of its 40
+# layers: 27.31 B params, 54.6 GB in bf16, where 10 layers (68 GB) would
+# leave too little of the 80 GB card for the caches, the prefill buffers
+# and the plain version's f32 copy of one expert matrix (4.2 GB).
+MOE_LAYERS = 8
+# Logits of one dbrx-132b decode step, gmm kernel vs gmm_ref swapped in,
+# normwise over the active rows whose routing agrees in every layer: bf16
+# through 8 layers, where phase 4's 2e-2 covers 36.  Router logits are bf16
+# before the softmax, so one ulp in a hidden state can swap the experts at
+# the top-4 boundary; a swapped row takes another expert's output, a
+# discontinuity no tolerance covers, so such rows are counted and printed,
+# not gated, and at most half the active rows may flip.  The kernel's own
+# check is at its inputs (GMM_NORM_TOL).
+MOE_LOGIT_TOL = 2e-2
 # (H, KVH, hd) of the served models' attention (phases 3-3c), and the
 # prompt lengths of phase 3c
 ATTN_SHAPES = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64),
@@ -414,12 +467,17 @@ def phase_paged_kernels(torch) -> None:
             del sets, dense_sets
 
 
-def load_model(torch, device: str, reduced: bool, arch: str = "qwen3-4b"):
-    """``arch`` (published widths, or the reduced config) with random
-    weights from SEED on ``device``."""
+def load_model(torch, device: str, reduced: bool, arch: str = "qwen3-4b",
+               n_layers: int = 0):
+    """``arch`` (published widths, cut to ``n_layers`` where given, or the
+    reduced config) with random weights from SEED on ``device``."""
+    import dataclasses
+
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.registry import build_model
     cfg = (reduced_config if reduced else get_config)(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     bundle = build_model(cfg)
     t0 = time.perf_counter()
     params = bundle.init(SEED, device=device)
@@ -466,12 +524,14 @@ def _wrappers() -> dict:
         paged_decode_attention,
     )
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.ssd import ssd_scan
     return {"decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "dwsep_conv1d": dwsep_conv1d,
             "flash_attention": flash_attention,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan,
+            "moe_gmm": gmm}
 
 
 def reset_counts() -> None:
@@ -551,10 +611,29 @@ def prefill_ab(torch, engine, cfg, reqs) -> dict:
     return ms
 
 
+def mid_run_batch(torch, engine, reqs, device, steps: int = 6) -> dict:
+    """``engine`` reset and driven through ``reqs`` to its ``steps``-th
+    decode step (a paged engine's tables refreshed, as a tick does before
+    it decodes); returns the next step's batch, {"tokens", "active"}."""
+    engine.reset()
+    for r in reqs:
+        engine.submit(r)
+    while engine.decode_steps < steps:
+        engine.tick(float(engine.decode_steps))
+    if engine.paged:
+        engine._refresh_tables()
+    return {"tokens": torch.as_tensor(engine.last_tok[:, None],
+                                      device=device),
+            "active": torch.tensor([r is not None for r in engine.active],
+                                   device=device)}
+
+
 def profile_decode(torch, tag, decode, params, state, batch, step_ms):
     """Where three decode steps' device time goes (torch.profiler, CUPTI):
     device busy from the kernels (and copies) the profiler saw on the card,
-    idle share against ``step_ms``, the unprofiled step of a split run."""
+    idle share against ``step_ms``, the unprofiled step of a split run.
+    Returns (busy ms a step, {kernel name: (launches, us) over the three
+    steps}), or None where the profiler saw no device kernel."""
     from torch.profiler import ProfilerActivity, profile
     _, state = decode(params, state, batch)
     torch.cuda.synchronize()
@@ -571,7 +650,7 @@ def profile_decode(torch, tag, decode, params, state, batch, step_ms):
     if not kernels:
         log(f"{tag} the profiler recorded no device kernels: device busy "
             f"and idle share not measured")
-        return
+        return None
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 3e3
     by_name = {}
     for e in kernels:
@@ -584,6 +663,7 @@ def profile_decode(torch, tag, decode, params, state, batch, step_ms):
     for name, (n, t) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][1])[:8]:
         log(f"{tag}   {t / 3e3:8.4f} ms/step {n // 3:5d}/step  {name[:90]}")
+    return busy_ms, by_name
 
 
 def phase_serve(torch, device: str = "cuda", reduced: bool = False):
@@ -646,15 +726,8 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
     prefill_ab(torch, engine, cfg, lambda: burst_requests(cfg))
 
     # one mid-run decode step, kernel vs plain attention, same state
-    engine.reset()
-    for r in burst_requests(cfg):
-        engine.submit(r)
-    while engine.decode_steps < 6:
-        engine.tick(float(engine.decode_steps))
-    active = torch.tensor([r is not None for r in engine.active],
-                          device=device)
-    batch = {"tokens": torch.as_tensor(engine.last_tok[:, None],
-                                       device=device), "active": active}
+    batch = mid_run_batch(torch, engine, burst_requests(cfg), device)
+    active = batch["active"]
     snap = {k: v.clone() for k, v in engine.cache.items()}
     logits_k, _ = bundle.decode_slotted(
         params, {k: v.clone() for k, v in snap.items()}, batch)
@@ -797,19 +870,10 @@ def phase_paged_serve(torch, model, dense_tokens, device: str = "cuda",
 
     # the kernel at the main path's own inputs: a mid-run step's pools,
     # one pair per layer (distinct memory per layer, as in a forward pass)
-    engine.reset()
-    for r in burst_requests(cfg):
-        engine.submit(r)
-    while engine.decode_steps < 6:
-        engine.tick(float(engine.decode_steps))
-    engine._refresh_tables()
+    batch = mid_run_batch(torch, engine, burst_requests(cfg), device)
     cache = engine.cache
     kv_len = cache["lens"] + 1
     tables = cache["tables"]
-    active = torch.tensor([r is not None for r in engine.active],
-                          device=device)
-    batch = {"tokens": torch.as_tensor(engine.last_tok[:, None],
-                                       device=device), "active": active}
     profile_decode(torch, "[paged-profile]", bundle.decode_paged, params,
                    {k: v.clone() for k, v in cache.items()}, batch,
                    1e3 * split["decode"][1] / max(split["decode"][0], 1))
@@ -1649,17 +1713,8 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
             tok_s=n_tok / wall, split=split)
 
         # one mid-run decode step: kernels vs plain versions, same state
-        engine.reset()
-        for r in reqs():
-            engine.submit(r)
-        while engine.decode_steps < 6:
-            engine.tick(float(engine.decode_steps))
-        if paged:
-            engine._refresh_tables()
-        active = torch.tensor([r is not None for r in engine.active],
-                              device=device)
-        batch = {"tokens": torch.as_tensor(engine.last_tok[:, None],
-                                           device=device), "active": active}
+        batch = mid_run_batch(torch, engine, reqs(), device)
+        active = batch["active"]
         step = bundle.decode_paged if paged else bundle.decode_slotted
 
         def clone():
@@ -1794,6 +1849,421 @@ def phase_mamba(torch, device: str = "cuda", reduced: bool = False,
                 prefill_rel=pre_rel, path=r)
 
 
+def gmm_inputs(torch, e, c, d, f, dtype, device, gen):
+    """x (E, C, D) ~ N(0, 1) and w (E, D, F) ~ N(0, 1/D), so that every
+    output is O(1)."""
+    x = torch.randn(e, c, d, generator=gen, device=device).to(dtype)
+    w = (torch.randn(e, d, f, generator=gen, device=device)
+         / math.sqrt(d)).to(dtype)
+    return x, w
+
+
+def gmm_bound_ms(x, w) -> tuple:
+    """Least time for one grouped matmul: x and w read once, the output
+    written once; 2 E C D F flops (every capacity row is computed)."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    item = x.element_size()
+    nbytes = (x.numel() + w.numel() + e * c * f) * item
+    flops = 2 * e * c * d * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bmm_call(x, w):
+    """PyTorch's own batched product on the same inputs (timed as the
+    yardstick, never used by the port)."""
+    import torch
+    return torch.bmm(x, w)
+
+
+def gmm_case_ms(torch, sets, timed: bool = True) -> dict:
+    """Kernel vs plain on every set (x, w), elementwise (GMM_TOL, printed
+    as a share of the tolerance) and normwise (GMM_NORM_TOL); then kernel,
+    plain, torch.bmm and bound times per call.  The plain version is timed
+    over the first three sets only: each of its bf16 calls makes an f32
+    copy of a weight matrix (4.2 GB at dbrx-132b's widths)."""
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    err, rel, worst = 0.0, 0.0, 0.0
+    for x, w in sets:
+        got, want = gmm(x, w), gmm_ref(x, w)
+        torch.cuda.synchronize()
+        name = str(x.dtype).split(".")[-1]
+        tol = GMM_TOL[name]
+        diff = (got.float() - want.float()).abs()
+        r = rel_err(got, want)
+        ratio = float((diff / (tol + tol * want.float().abs())).max())
+        if not (torch.isfinite(got).all() and r <= GMM_NORM_TOL[name]
+                and ratio <= 1.0):
+            raise RuntimeError(
+                f"gmm {tuple(x.shape)} @ {tuple(w.shape)} {name}: kernel "
+                f"disagrees with plain: normwise {r:.3g} (tol "
+                f"{GMM_NORM_TOL[name]}), max err {float(diff.max())}, "
+                f"{ratio:.3g} of the elementwise tolerance")
+        err, rel = max(err, float(diff.max())), max(rel, r)
+        worst = max(worst, ratio)
+        del got, want, diff
+    out = dict(err=err, rel=rel, worst=worst)
+    if timed:
+        bounds = [gmm_bound_ms(x, w) for x, w in sets]
+        out.update(ms=time_ms(gmm, sets), plain_ms=time_ms(gmm_ref, sets[:3]),
+                   library_ms=time_ms(bmm_call, sets),
+                   bound_ms=sum(t for t, _ in bounds) / len(bounds),
+                   bound_by=max(bounds)[1])
+        torch.cuda.empty_cache()
+    return out
+
+
+def gmm_times(r) -> str:
+    return (f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bmm_ms="
+            f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+
+
+def phase_gmm_kernels(torch, device: str = "cuda", cases=GMM_CASES,
+                      edge_cases=GMM_EDGE_CASES) -> None:
+    """The grouped-matmul kernel vs its plain version at dbrx-132b's
+    shapes (timed) and the reference tests' and ragged shapes, f32 and
+    bf16."""
+    for case in list(cases) + list(edge_cases):
+        timed = case not in edge_cases
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            sets = [gmm_inputs(torch, *case, dtype, device, gen)]
+            r = gmm_case_ms(torch, sets, timed)
+            name = str(dtype).split(".")[-1]
+            e, c, d, f = case
+            log(f"[kernel] moe_gmm E={e} C={c} D={d} F={f} {name}: "
+                f"max_abs_err={r['err']:.3g}, {r['worst']:.3g} of the "
+                f"tolerance (rtol = atol = {GMM_TOL[name]}); normwise "
+                f"{r['rel']:.3g} (tol {GMM_NORM_TOL[name]})"
+                + (f" {gmm_times(r)}" if timed else ""))
+            del sets
+            torch.cuda.empty_cache()
+
+
+def drop_accounting(torch, engine, reqs, prefill_field: str):
+    """``reqs`` through an engine like ``engine`` whose prefill records the
+    requests each call holds, with ``moe_block`` wrapped to count the
+    (token, expert) pairs each call drops at capacity (summed over the
+    layers, on the device, read once at the end).  Returns ({rid: pairs
+    dropped in the prefill calls that held it}, pairs dropped in decode
+    steps, {rid: tokens}).  The program itself counts nothing."""
+    import dataclasses
+
+    import repro_torch.models.transformer as transformer_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ServeEngine
+    by_prompt = {tuple(r.prompt.tolist()): r.rid for r in reqs}
+    current = {"rids": None}
+    drops = []
+    block = transformer_mod.moe_block
+
+    def counting(p, x, cfg):
+        t = x.shape[0] * x.shape[1]
+        _, _, experts = moe_mod.route(p, x.reshape(t, -1), cfg)
+        counts = (experts.reshape(-1, 1) == torch.arange(
+            cfg.n_experts, device=x.device)).sum(0)
+        cap = moe_mod.expert_capacity(t, cfg)
+        drops.append((current["rids"], (counts - cap).clamp(min=0).sum()))
+        return block(p, x, cfg)
+
+    prefill = getattr(engine.bundle, prefill_field)
+
+    def recording(params, batch):
+        toks = batch["tokens"].cpu().numpy()
+        lens = batch["lens"].cpu().numpy()
+        current["rids"] = [by_prompt.get(tuple(toks[i, :n].tolist()))
+                           for i, n in enumerate(lens)]
+        try:
+            return prefill(params, batch)
+        finally:
+            current["rids"] = None
+    run = ServeEngine(dataclasses.replace(engine.bundle,
+                                          **{prefill_field: recording}),
+                      engine.params, engine.cfg, device=engine.device)
+    done = swapped([(transformer_mod, "moe_block", counting)], run.run, reqs)
+    per_rid, decode = {r.rid: 0 for r in reqs}, 0
+    for rids, n in drops:
+        n = int(n)
+        if rids is None:
+            decode += n
+        for rid in rids or ():
+            if rid is not None:
+                per_rid[rid] += n
+    return per_rid, decode, {r.rid: r.out for r in done}
+
+
+def routing_flips(torch, a, b, rows) -> tuple:
+    """(token, expert) choices of one run's route calls (``a``) absent in
+    another's (``b``), over ``rows``: (total, rows with any flip)."""
+    flips = torch.zeros(int(rows.sum()), dtype=torch.long,
+                        device=rows.device)
+    for ea, eb in zip(a, b):
+        ea, eb = ea[rows], eb[rows]
+        flips += (ea[:, :, None] != eb[:, None, :]).all(-1).sum(-1)
+    return int(flips.sum()), flips > 0
+
+
+def decode_step_gate(torch, params, engine, step, batch, tag):
+    """One mid-run decode step: the gmm inputs it gave the kernel, and its
+    logits with the kernel and with gmm_ref swapped in, over the active
+    rows whose routing agrees in every layer (MOE_LOGIT_TOL); routing
+    flips counted.  Returns (rel_err, flips, the gmm inputs)."""
+    from repro_torch.kernels.moe_gmm import gmm_ref
+    from repro_torch.models import moe as moe_mod
+    active = batch["active"]
+    gmm, route = moe_mod.gmm, moe_mod.route
+    seen = {"gmm": [], "kernel": [], "plain": []}
+
+    def rec_gmm(x, w):
+        seen["gmm"].append((x, w))
+        return gmm(x, w)
+
+    def rec_route(which):
+        def call(p, xf, cfg):
+            out = route(p, xf, cfg)
+            seen[which].append(out[2])
+            return out
+        return call
+
+    def clone():
+        return {k: v.clone() for k, v in engine.cache.items()}
+    logits_k, _ = swapped([(moe_mod, "gmm", rec_gmm),
+                           (moe_mod, "route", rec_route("kernel"))],
+                          step, params, clone(), batch)
+    logits_p, _ = swapped([(moe_mod, "gmm", gmm_ref),
+                           (moe_mod, "route", rec_route("plain"))],
+                          step, params, clone(), batch)
+    if not torch.isfinite(logits_k).all():
+        raise RuntimeError(f"{tag} non-finite decode-step logits")
+    flips, flipped = routing_flips(torch, seen["kernel"], seen["plain"],
+                                   active)
+    keep = ~flipped
+    n_active = int(active.sum())
+    if 2 * int(flipped.sum()) > n_active:
+        raise RuntimeError(f"{tag} decode step: routing flipped on "
+                           f"{int(flipped.sum())} of {n_active} active rows "
+                           f"between the kernel and gmm_ref")
+    lk, lp = logits_k[active][keep], logits_p[active][keep]
+    rel = rel_err(lk, lp)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"{tag} decode step {engine.decode_steps}: logits gmm kernel vs "
+        f"gmm_ref: rel_err={rel:.4g} (tol {MOE_LOGIT_TOL}) over "
+        f"{int(keep.sum())} of {n_active} active rows, argmax agreement "
+        f"{agree:.3f}; routing flips {flips} (token, expert) choices on "
+        f"{int(flipped.sum())} rows, left out of the gate")
+    if not rel <= MOE_LOGIT_TOL:
+        raise RuntimeError(f"{tag} decode-step logits, gmm kernel vs "
+                           f"gmm_ref: relative error {rel} over "
+                           f"{MOE_LOGIT_TOL}")
+    return rel, flips, seen["gmm"]
+
+
+def peak_gb(torch, device) -> float:
+    """Peak device memory since the last reset, GB (0 off the card)."""
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_moe(torch, device: str = "cuda", reduced: bool = False,
+              arch: str = "dbrx-132b", n_layers: int = MOE_LAYERS,
+              cache_len: int = 1024, lengths=(32, 700)):
+    """dbrx-132b at its published widths cut to ``n_layers``: launcher,
+    dense engine, paged engine, the launch, token and logits gates, and the
+    gmm kernel at one prefill's and one decode step's inputs.  The keywords
+    let the flow be rehearsed on the CPU at toy size."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.serve.buckets import pad_length
+
+    log(f"[{arch}] launcher: repro_torch.launch.serve.main --arch {arch} "
+        f"--reduced --engine --paged")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", arch, "--reduced", "--engine", "--paged",
+                       "--device", device, "--seed", str(SEED)])
+    log(f"[{arch}] launcher done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cfg, bundle, params = load_model(torch, device, reduced, arch,
+                                     0 if reduced else n_layers)
+    n = cfg.n_layers
+    slots, max_new, pad_to = 8, 16, 8
+
+    def reqs():
+        return burst_requests(cfg, max_new, lengths)
+    results = {}
+    for paged in (False, True):
+        tag = f"[{arch}{' paged' if paged else ''}]"
+        kind = "paged" if paged else "slotted"
+        engine = ServeEngine(bundle, params, EngineConfig(
+            slots=slots, cache_len=cache_len, pad_to=pad_to,
+            max_prefill_batch=8, paged=paged, block_size=16), device=device)
+        # the first run, also the warm-up: pairs dropped at capacity
+        drops, decode_drops, first = drop_accounting(
+            torch, engine, reqs(), f"prefill_{kind}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        done = engine.run(reqs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, stats = read_counts(), engine.stats()
+        if len(done) != 16 or not all(r.done and len(r.out) == max_new
+                                      and not r.oom for r in done):
+            raise RuntimeError(f"{tag} not every request finished with its "
+                               f"tokens")
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        other = "decode_attention" if paged else "paged_decode_attention"
+        calls = stats["prefill_calls"] + stats["decode_steps"]
+        check_launches(counts, {
+            "moe_gmm": 3 * n * calls,
+            "flash_attention": stats["prefill_calls"] * n,
+            decode: stats["decode_steps"] * n, other: 0})
+        tokens = {r.rid: r.out for r in done}
+        repeat = sum(first[rid] == tokens[rid] for rid in tokens)
+        line = (f"{sum(drops.values())} pairs dropped at capacity in prefill "
+                f"(requests {sorted(rid for rid, k in drops.items() if k)}), "
+                f"{decode_drops} in decode; tokens equal to the first run's "
+                f"for {repeat}/16 requests")
+        if paged:
+            dense = results["dense"]
+            differ = sorted(rid for rid in tokens
+                            if tokens[rid] != dense["tokens"][rid])
+            # a pair dropped in a decode step couples every slot of it
+            unexplained = [] if dense["decode_drops"] or decode_drops else [
+                rid for rid in differ
+                if not (drops[rid] or dense["drops"][rid])]
+            line += (f"; tokens equal to the dense engine's for "
+                     f"{16 - len(differ)}/16 requests"
+                     + (f" (differ: {differ}, pairs dropped there dense / "
+                        f"paged: {[(dense['drops'][r], drops[r]) for r in differ]})"
+                        if differ else ""))
+            if unexplained:
+                raise RuntimeError(
+                    f"{tag} paged tokens differ from the dense engine's for "
+                    f"requests {differ}; {unexplained} dropped no pair in "
+                    f"either run")
+        split = split_run(torch, engine, {f"prefill_{kind}": "prefill",
+                                          f"decode_{kind}": "decode"},
+                          reqs())
+        n_tok = sum(len(r.out) for r in done)
+        log(f"{tag} engine: {len(done)} requests, max_new {max_new}, slots "
+            f"{slots}, cache_len {cache_len}, pad_to {pad_to}"
+            f"{', block_size 16' if paged else ''}: {n_tok} tokens in "
+            f"{wall:.3f}s = {n_tok / wall:.1f} tok/s; stats {stats}; launches "
+            f"{counts} (moe_gmm = 3 x {n} x ({stats['prefill_calls']} + "
+            f"{stats['decode_steps']}), flash = {stats['prefill_calls']} x "
+            f"{n}, {decode} = {stats['decode_steps']} x {n}); {line}")
+
+        # one mid-run decode step: the gmm kernel vs gmm_ref, same state
+        batch = mid_run_batch(torch, engine, reqs(), device)
+        step = bundle.decode_paged if paged else bundle.decode_slotted
+        rel, flips, sets = decode_step_gate(torch, params, engine, step,
+                                            batch, tag)
+        if len(sets) != 3 * n:
+            raise RuntimeError(f"{tag} one decode step launched {len(sets)} "
+                               f"gmm calls, want {3 * n}")
+        step_ms = 1e3 * split["decode"][1] / max(split["decode"][0], 1)
+        prof = profile_decode(torch, f"{tag}[profile]", step, params,
+                              {k: v.clone() for k, v in engine.cache.items()},
+                              batch, step_ms)
+        share = None
+        if prof is not None:
+            busy, by_name = prof
+            gmm_us = sum(t for name, (_, t) in by_name.items()
+                         if "gmm_" in name)
+            share = gmm_us / 3e3 / busy
+            log(f"{tag}[profile] gmm kernel: {gmm_us / 3e3:.3f} ms of "
+                f"{busy:.3f} ms device busy a step ({share:.3f})")
+        results["paged" if paged else "dense"] = dict(
+            tokens=tokens, counts=counts, stats=stats, wall=wall,
+            tok_s=n_tok / wall, split=split, drops=drops,
+            decode_drops=decode_drops, step_rel=rel, flips=flips,
+            gmm_share=share, decode_sets=None if paged else sets)
+        engine.reset()
+        del engine, batch
+        if paged:
+            del sets
+
+    # the kernel at the inputs one prefill (the longest prompt, in its
+    # bucket of 8, alone) and one decode step gave it
+    prompt = max((r.prompt for r in reqs()), key=len)
+    length = pad_length(len(prompt), pad_to)
+    toks = torch.zeros((1, length), dtype=torch.int32, device=device)
+    toks[0, :len(prompt)] = torch.as_tensor(prompt, device=device)
+    seen = []
+    gmm = moe_mod.gmm
+
+    def rec_gmm(x, w):
+        seen.append((x, w))
+        return gmm(x, w)
+    logits, _ = swapped([(moe_mod, "gmm", rec_gmm)], bundle.prefill_slotted,
+                        params, {"tokens": toks, "lens": torch.tensor(
+                            [len(prompt)], dtype=torch.int32, device=device),
+                            "cache_len": cache_len})
+    if len(seen) != 3 * n or not torch.isfinite(logits).all():
+        raise RuntimeError(f"[{arch}] one prefill launched {len(seen)} gmm "
+                           f"calls (want {3 * n}), or its logits are not "
+                           f"finite")
+    decode_sets = results["dense"].pop("decode_sets")
+    paths = {"prefill": gmm_case_ms(torch, seen),
+             "decode": gmm_case_ms(torch, decode_sets)}
+    for which, sets, what in (("prefill", seen, f"a {length}-token bucket"),
+                              ("decode step", decode_sets, f"{slots} slots")):
+        r = paths[which.split()[0]]
+        log(f"[kernel] moe_gmm at one {which}'s {len(sets)} launches of "
+            f"{arch} (E={cfg.n_experts} C={sets[0][0].shape[1]} for {what}, "
+            f"D/F={cfg.d_model}/{cfg.moe_d_ff}; per launch, averaged): "
+            f"max_abs_err={r['err']:.3g}, {r['worst']:.3g} of the tolerance;"
+            f" normwise {r['rel']:.3g} (tol {GMM_NORM_TOL[cfg.dtype]}) "
+            f"{gmm_times(r)}")
+    del seen, decode_sets
+    peak = peak_gb(torch, device)
+    d, p = results["dense"], results["paged"]
+    log(f"[{arch}] {n} of {get_config(arch).n_layers} layers: tok/s dense "
+        f"{d['tok_s']:.1f}, paged {p['tok_s']:.1f}; peak device memory "
+        f"{peak:.2f} GB")
+    results.update(paths=paths, peak_gb=peak)
+    return results
+
+
+def gmm_entry(moe) -> dict:
+    """The ``kernels`` line's entry for the grouped matmul, from phase 12:
+    launches of the dense engine's run; times per launch over one decode
+    step's inputs, and (``prefill_*``) one prefill's."""
+    d, pre = moe["paths"]["decode"], moe["paths"]["prefill"]
+    return {
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:40",
+        "launches": moe["dense"]["counts"]["moe_gmm"],
+        "max_abs_err": max(d["err"], pre["err"]),
+        "rel_err": max(d["rel"], pre["rel"]),
+        "ms": d["ms"],
+        "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"],
+        "library_ms": d["library_ms"],
+        "prefill_ms": pre["ms"],
+        "prefill_plain_ms": pre["plain_ms"],
+        "prefill_bound_ms": pre["bound_ms"],
+        "prefill_bound_by": pre["bound_by"],
+        "prefill_library_ms": pre["library_ms"],
+        "library": "torch.bmm(x, w); launches from dbrx-132b's dense engine "
+                   "run (8 of 40 layers); times per launch averaged over one "
+                   "decode step's 24 launches (cap 8 at 8 slots), prefill_* "
+                   "over one 704-token prefill's 24 (cap 224); rel_err is "
+                   "the largest normwise error there, the gate",
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1833,6 +2303,7 @@ def main() -> int:
     phase_paged_kernels(torch)
     phase_flash_kernels(torch)
     phase_ssd_kernels(torch)
+    phase_gmm_kernels(torch)
     launches, path, served = phase_serve(torch)
     paged_launches, paged_path = phase_paged_serve(torch, served["model"],
                                                    served["tokens"])
@@ -1848,6 +2319,8 @@ def main() -> int:
     del zamba["model"]
     torch.cuda.empty_cache()
     mamba = phase_mamba(torch)
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch)
     zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
@@ -1932,11 +2405,13 @@ def main() -> int:
                    "enable_gqa=True); launches from zamba2-7b's dense engine "
                    "run, times per launch averaged over one prefill's 13 "
                    "shared-block applications (hd 112)",
-    }]
-    log(f"[done] phases 3-11 in {time.perf_counter() - t_total:.1f}s; ecg "
+    }, gmm_entry(moe)]
+    log(f"[done] phases 3-12 in {time.perf_counter() - t_total:.1f}s; ecg "
         f"rates {ecg['rates']}; zamba2-7b tok/s dense "
         f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
-        f" mamba2-780m tok/s {mamba['tok_s']:.1f}")
+        f" mamba2-780m tok/s {mamba['tok_s']:.1f}; dbrx-132b (8 layers) "
+        f"tok/s dense {moe['dense']['tok_s']:.1f}, paged "
+        f"{moe['paged']['tok_s']:.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

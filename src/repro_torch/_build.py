@@ -22,7 +22,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
-SOURCES = ("decode_attention", "dwsep_conv1d", "ssd", "flash_attention")
+SOURCES = ("decode_attention", "dwsep_conv1d", "ssd", "flash_attention",
+           "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,7 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants.
 
 Mirrors ``repro/configs/__init__.py``.  Every arch id of the reference is
-known here, but only the families this port serves (dense, SSM and
+known here, but only the families this port serves (dense, MoE, SSM and
 hybrid) have a config module; the others raise ``NotImplementedError``
 until their slice lands.
 """
@@ -27,8 +27,8 @@ ARCH_MODULES: Dict[str, str] = {
 }
 
 ALL_ARCHS: List[str] = list(ARCH_MODULES)
-PORTED_ARCHS: List[str] = ["qwen2-0.5b", "qwen3-4b", "mamba2-780m",
-                            "zamba2-7b"]
+PORTED_ARCHS: List[str] = ["qwen2-0.5b", "qwen3-4b", "dbrx-132b",
+                            "kimi-k2-1t-a32b", "mamba2-780m", "zamba2-7b"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,8 +1,8 @@
 """ModelBundle: one functional API over the ported architecture families.
 
 Counterpart of ``repro/models/registry.py``, holding only the fields the
-serving path reads.  Family dispatch happens once, here: the dense LM
-family, and the SSM and hybrid families (mamba2, zamba2).
+serving path reads.  Family dispatch happens once, here: the dense and
+MoE LM families, and the SSM and hybrid families (mamba2, zamba2).
 
 * ``init(seed, device) -> params``
 * ``apply_train(params, batch) -> (logits, aux)`` — full teacher-forced pass

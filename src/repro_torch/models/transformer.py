@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM, dense and MoE families.
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks layer
 parameters on a leading ``layers`` axis for ``lax.scan``; PyTorch runs
@@ -11,7 +11,9 @@ sharding hints do nothing on one device and are dropped.
 Entry points: ``lm_forward`` (training), ``lm_prefill`` / ``lm_decode_step``
 (one shared length), their ``_slotted`` forms (per-slot lengths, the
 serving engine's dense path) and their ``_paged`` forms (a block pool
-shared by every slot, the paged engine's path).
+shared by every slot, the paged engine's path).  An MoE layer holds
+``moe`` where a dense one holds ``mlp``; training sums the layers' load-
+balance losses, serving discards them, as the reference does.
 """
 from __future__ import annotations
 
@@ -37,13 +39,15 @@ from repro_torch.models.common import (
     init_norm,
 )
 from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.moe import init_moe, moe_block
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported (this module serves "
-            f"the dense LM family; ssm and hybrid are models/hybrid.py)")
+            f"the dense and MoE LM families; ssm and hybrid are "
+            f"models/hybrid.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -51,13 +55,18 @@ def check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
-    return {
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype
+                ) -> Dict[str, Any]:
+    p = {
         "attn_norm": init_norm(cfg.norm, cfg.d_model, gen.device),
         "attn": init_attention(gen, cfg),
         "mlp_norm": init_norm(cfg.norm, cfg.d_model, gen.device),
-        "mlp": init_mlp(gen, cfg),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
 
 
 def init_lm(seed: int, cfg: ModelConfig, device: DeviceLike = None
@@ -68,7 +77,8 @@ def init_lm(seed: int, cfg: ModelConfig, device: DeviceLike = None
     unit norms, zero biases, everything cast to ``cfg.dtype``), not the
     same numbers: parity tests copy the reference's params instead
     (:func:`repro_torch.weights.params_from_jax`).  Each layer is cast as
-    soon as it is drawn, so f32 copies of the whole model never coexist.
+    soon as it is drawn (each expert matrix as soon as it is drawn), so f32
+    copies of the whole model never coexist.
     """
     check_family(cfg)
     dev = resolve_device(device)
@@ -77,7 +87,7 @@ def init_lm(seed: int, cfg: ModelConfig, device: DeviceLike = None
     gen.manual_seed(seed)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model)).to(dtype),
-        "layers": [cast_tree(_init_layer(gen, cfg), dtype)
+        "layers": [cast_tree(_init_layer(gen, cfg, dtype), dtype)
                    for _ in range(cfg.n_layers)],
         "final_norm": cast_tree(init_norm(cfg.norm, cfg.d_model, dev), dtype),
     }
@@ -92,10 +102,20 @@ def init_lm(seed: int, cfg: ModelConfig, device: DeviceLike = None
 # ---------------------------------------------------------------------------
 
 
+def _ffn_residual(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``h`` plus the layer's feed-forward (dense MLP or MoE) of the normed
+    ``h``, and the MoE load-balance loss (None for a dense layer)."""
+    hn = apply_norm(cfg.norm, h, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_block(lp["moe"], hn, cfg)
+        return h + y, aux
+    return h + mlp_block(lp["mlp"], hn, cfg), None
+
+
 def _mlp_residual(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
                   ) -> torch.Tensor:
-    hn = apply_norm(cfg.norm, h, lp["mlp_norm"], cfg.norm_eps)
-    return h + mlp_block(lp["mlp"], hn, cfg)
+    return _ffn_residual(lp, h, cfg)[0]
 
 
 def _attn_in(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
@@ -124,16 +144,20 @@ def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
               tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward. Returns (final-norm hidden (B,S,D), aux_loss); the
-    dense family has no auxiliary loss, so it is a zero."""
+    """Backbone forward. Returns (final-norm hidden (B,S,D), aux_loss): the
+    sum of the MoE layers' load-balance losses, a zero for the dense
+    family."""
     check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         h = x + attention_block(lp["attn"], _attn_in(lp, x, cfg), cfg,
                                 positions=positions, causal=True)
-        x = _mlp_residual(lp, h, cfg)
+        x, aux_l = _ffn_residual(lp, h, cfg)
+        if aux_l is not None:
+            aux = aux + aux_l
     x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig, *,

@@ -1,11 +1,14 @@
 """Reference params -> port params.
 
 The only place where the two packages' layouts are mapped.  For the LM
-family ``repro`` stacks every layer's params on a leading ``layers`` axis
-(for ``lax.scan``); the port keeps a list of per-layer dicts.  For the SSM
-and hybrid families it stacks ``groups`` as ``(n_groups, period, ...)`` and
-``tail`` as ``(tail, ...)``; the port keeps a list of lists and a list, and
-``shared`` once on both sides.  An ECG candidate is a list of per-layer
+families ``repro`` stacks every layer's params on a leading ``layers`` axis
+(for ``lax.scan``); the port keeps a list of per-layer dicts.  An MoE
+layer's ``moe`` leaves keep their layout: ``router`` (D, E), ``gate`` and
+``up`` (E, D, F), ``down`` (E, F, D), each expert's matrix row-major as the
+grouped-matmul kernel reads it.  For the SSM and hybrid families ``repro``
+stacks ``groups`` as ``(n_groups, period, ...)`` and ``tail`` as ``(tail,
+...)``; the port keeps a list of lists and a list, and ``shared`` once on
+both sides.  An ECG candidate is a list of per-layer
 dicts on both sides.  Leaf names and ``(in, out)`` matrix layouts are the
 same on both sides.
 """
@@ -67,8 +70,6 @@ def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
             out["tail"] = _unstack(tree["tail"], _leading(tree["tail"]), dev)
         return out
     layers = tree["layers"]
-    if "moe" in layers:
-        raise NotImplementedError("MoE params are not yet ported")
     out: Dict[str, Any] = {
         "embed": _tensor(tree["embed"], dev),
         "layers": _unstack(layers, _leading(layers), dev),

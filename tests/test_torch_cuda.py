@@ -9,7 +9,9 @@ tests' tolerances: the output's single bf16 rounding can land on either
 side).  The SSD scan: 1e-4 for y and the state, the reference's own
 tolerance between its chunked scan and the step-by-step recurrence
 (tests/test_kernels.py), which is what the kernel runs against the
-chunked plain version; bf16 y 2e-2, one output rounding.
+chunked plain version; bf16 y 2e-2, one output rounding.  The grouped
+matmul: 1e-4 (f32) and 5e-2 (bf16), the reference's own (its
+tests/test_kernels.py), with w scaled by 1/sqrt(D) so outputs are O(1).
 """
 import pytest
 import torch
@@ -25,6 +27,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
+from repro_torch.kernels.moe_gmm import gmm, gmm_ref
 from repro_torch.kernels.ssd import ssd_chunked, ssd_scan
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -447,3 +450,140 @@ def test_hybrid_engine_runs_every_kernel(cuda_device, arch):
         assert (dense if paged else pag) == 0
         tokens.append([r.out for r in done])
     assert tokens[0] == tokens[1]
+
+
+# (E, C, D, F): the reference tests' shapes, ragged sizes no tile divides
+# (C 1, 3, 17; D 100, 6; F 72, 130: the plain-load path), the tile edges of
+# both bf16 tile shapes (C 16 and 17, 64 and 65), and the reduced configs'
+# D 128 and F 64
+GMM_SHAPES = [(4, 32, 64, 48), (8, 16, 128, 64), (2, 64, 32, 32),
+              (3, 1, 100, 72), (2, 3, 100, 72), (2, 17, 100, 72),
+              (5, 8, 6, 130), (2, 16, 256, 136), (2, 65, 96, 256),
+              (8, 8, 128, 64), (8, 40, 64, 128)]
+GMM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+def _gmm_inputs(e, c, d, f, dtype, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(e, c, d, generator=gen)
+    w = torch.randn(e, d, f, generator=gen) / d ** 0.5
+    return x.to(device, dtype), w.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_gmm_kernel_matches_plain_version(cuda_device, e, c, d, f, dtype):
+    x, w = _gmm_inputs(e, c, d, f, dtype, cuda_device)
+    before = gmm.launches
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (e, c, f)
+    torch.testing.assert_close(got.float(), gmm_ref(x, w).float(),
+                               **GMM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,f", [(8, 6144, 10752), (8, 10752, 6144)],
+                         ids=["gate_up", "down"])
+def test_gmm_kernel_at_dbrx_decode_shapes(cuda_device, c, d, f):
+    """dbrx-132b's 16 experts at decode (cap 8), bf16, the main path's
+    type; also normwise within one output rounding."""
+    x, w = _gmm_inputs(16, c, d, f, torch.bfloat16, cuda_device)
+    got, want = gmm(x, w), gmm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **GMM_TOL[torch.bfloat16])
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel < 1e-2
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_is_deterministic_and_experts_independent(cuda_device):
+    """No atomics: the same call twice is bit for bit the same, and an
+    expert's rows alone equal the same rows inside the whole call."""
+    x, w = _gmm_inputs(6, 40, 256, 200, torch.bfloat16, cuda_device)
+    full = gmm(x, w)
+    assert torch.equal(full, gmm(x, w))
+    for e in (0, 5):
+        one = gmm(x[e:e + 1].contiguous(), w[e:e + 1].contiguous())
+        assert torch.equal(one[0], full[e])
+
+
+@pytest.mark.cuda
+def test_gmm_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, w = _gmm_inputs(2, 4, 8, 6, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        gmm(x.half(), w.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="device"):
+        gmm(x, w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_engine_runs_every_kernel(cuda_device, arch):
+    """The reduced MoE LM on the card, dense and paged: gmm launches = 3 x
+    layers x (prefill calls + decode steps), flash = layers x prefill
+    calls, decode = layers x decode steps, paged tokens equal dense tokens
+    (same buckets, so the same pairs drop), and a run repeats its tokens
+    exactly (no atomics in dispatch or combine)."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine, ServeRequest
+    cfg = reduced_config(arch, dtype="bfloat16")
+    n = cfg.n_layers
+    bundle = build_model(cfg)
+    params = bundle.init(0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
+               for k in [3, 17, 9, 30, 12]]
+    tokens = []
+    for paged in (False, True, True):
+        engine = ServeEngine(bundle, params, EngineConfig(
+            slots=3, cache_len=64, pad_to=8, paged=paged, block_size=16),
+            device=cuda_device)
+        before = [gmm.launches, flash_attention.launches,
+                  decode_attention.launches, paged_decode_attention.launches]
+        done = engine.run([ServeRequest(rid=i, prompt=p, max_new=5)
+                           for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        moe, flash, dense, pag = (now - was for now, was in zip(
+            [gmm.launches, flash_attention.launches,
+             decode_attention.launches, paged_decode_attention.launches],
+            before))
+        assert all(r.done and len(r.out) == 5 for r in done)
+        assert moe == 3 * n * (engine.prefill_calls + engine.decode_steps)
+        assert flash == engine.prefill_calls * n
+        assert (pag if paged else dense) == engine.decode_steps * n
+        assert (dense if paged else pag) == 0
+        tokens.append([r.out for r in done])
+    assert tokens[0] == tokens[1] == tokens[2]
+
+
+@pytest.mark.cuda
+def test_moe_block_runs_without_a_host_sync(cuda_device):
+    """Dispatch, the three kernel launches and the combine queue on the
+    stream without waiting for the card (``cap`` is a Python int from the
+    token count); the block repeats its output bit for bit."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.moe import init_moe, moe_block
+    cfg = reduced_config("dbrx-132b", dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn(2, 24, cfg.d_model, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    moe_block(p, x, cfg)                  # first call: build, allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = moe_block(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again, _ = moe_block(p, x, cfg)
+    assert torch.equal(y, again)

@@ -142,15 +142,16 @@ def test_launch_main_runs_on_cpu(mode, capsys):
 
 
 def test_unported_options_raise():
-    """The MoE family is still to port (ROADMAP.md queue 1); the paged
-    cache, the fault hook and the router are ported and tested in
+    """The encoder-decoder family is still to port (ROADMAP.md queue 1);
+    the MoE family, the paged cache, the fault hook and the router are
+    ported and tested in tests/test_torch_moe.py,
     tests/test_torch_serve_paged.py and tests/test_torch_router.py."""
     _, tcfg, _, bundle, tp = _port()
-    moe = dataclasses.replace(tcfg, family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(moe)
-    with pytest.raises(NotImplementedError, match="moe"):
-        init_lm(0, moe, device="cpu")
+    encdec = dataclasses.replace(tcfg, family="encdec")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        build_model(encdec)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        init_lm(0, encdec, device="cpu")
 
 
 ENTRY_POINTS = {

@@ -40,6 +40,9 @@ def one_thread():
 # reduced qwen3-4b (qk-norm, untied), reduced qwen2-0.5b (QKV bias, tied),
 # and qwen2-0.5b's own GQA ratio of 7 (not a power of two)
 ARCHS = ["qwen3-4b", "qwen2-0.5b", "qwen2-0.5b-rep7"]
+# reduced dbrx-132b (8 experts, top-2) and reduced kimi-k2 (the same, plus
+# a shared expert); ``configs`` and ``params`` serve them as they do ARCHS
+MOE_ARCHS = ["dbrx-132b", "kimi-k2-1t-a32b"]
 
 
 def configs(arch):
