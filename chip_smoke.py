@@ -10,19 +10,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA device must be present; the card's name and power limit are read
    with nvidia-smi;
 2. the port's CUDA sources are built (repro_torch/_build.py, nvcc for
-   sm_90a), and the build seconds printed;
+   sm_90a), and the build seconds printed, with each tensor-core kernel's
+   registers and spills (none may spill), ptxas's wgmma serialisation
+   warnings (none allowed) and the wgmma (HGMMA) instructions in the
+   flash and gmm libraries' SASS (cuobjdump; some must be there);
 3. the dense decode-attention kernel is held against its plain PyTorch
-   version on the card at the decode shapes of qwen3-4b, qwen2-0.5b and
-   zamba2-7b's shared block (hd 112), f32 and bf16, with mixed kv_len (1,
-   S, and lengths that are no multiple of any tile), and timed beside the
-   plain version and PyTorch's scaled_dot_product_attention;
+   version on the card at the decode shapes of qwen3-4b, qwen2-0.5b,
+   zamba2-7b's shared block (hd 112), granite-34b (48 heads over 1 KV
+   head) and mistral-large-123b (96 over 8: groups wider than 8 heads),
+   f32 and bf16, with mixed kv_len (1, S, and lengths that are no multiple
+   of any tile), and timed beside the plain version, PyTorch's
+   scaled_dot_product_attention and its bound;
 3b. the paged kernel likewise, over a shuffled pool of B*NB + 7 pages with
    sentinel table entries past each row's kv_len; with identity tables
    (NB*BS == S) it must equal the dense kernel bit for bit;
 3c. the causal flash-attention kernel is held against its plain version at
-   the prefill shapes of qwen3-4b, qwen2-0.5b and zamba2-7b (S 8, 40, 704,
-   2048), f32 and bf16, and timed beside the plain version, PyTorch's
-   scaled_dot_product_attention(is_causal=True) and its bound;
+   the prefill shapes of qwen3-4b, qwen2-0.5b, zamba2-7b and dbrx-132b (S
+   8, 40, 704, 2048), f32 and bf16, each call on the path its dtype picks
+   (bf16 the wgmma kernel, f32 the CUDA-core one), and timed beside the
+   plain version, PyTorch's scaled_dot_product_attention(is_causal=True)
+   and its bound, with its TFLOP/s;
 3d. the SSD scan kernel likewise, on y and the final state, at zamba2-7b's
    (B 1 and 4, H 112, P 64, N 64) and mamba2-780m's (H 48, N 128) widths
    for L 1, 3, 255, 256, 700 and 2048, and at the reference tests' edge
@@ -30,8 +37,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 3e. the grouped-matmul kernel of the MoE expert FFN likewise, elementwise
    and normwise, at dbrx-132b's decode shapes (cap 8: gate/up and down) and
    prefill shapes (cap 224 and 40), the reference tests' shapes and ragged
-   ones (C 1, 3, 17; D 100; F 72), f32 and bf16, timed beside the plain
-   version, torch.bmm and its bound;
+   ones (C 1, 3, 17; D 100; F 72), f32 and bf16, each call on the path its
+   shape picks (gmm_path), timed beside the plain version, torch.bmm and
+   its bound, with its TFLOP/s;
 4. qwen3-4b at its published widths (bf16, random weights from a seed) is
    served: first through the launcher (repro_torch.launch.serve.main), then
    through a ServeEngine with 8 slots and a 1024-token cache answering 16
@@ -98,7 +106,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    cache, buckets of 8) and a paged one (16-token blocks, worst-case pool).
    Gates: every request finishes; gmm launches = 3 x 8 x (prefill calls +
    decode steps), flash = 8 x prefill calls, decode = 8 x decode steps
-   (dense, then paged); paged tokens equal dense tokens, or the pairs
+   (dense, then paged); every gmm launch of capacity > 16 (prefill) on the
+   wgmma path and every one of capacity <= 16 (decode steps, and a
+   32-token prefill) on the decode path; paged tokens equal dense tokens,
+   or the pairs
    dropped at capacity in the prefill calls that held a differing request
    explain it (counted by wrapping moe_block from here); the kernel equals
    gmm_ref normwise at one prefill's and one decode step's own inputs; one
@@ -231,6 +242,13 @@ MOE_LOGIT_TOL = 2e-2
 # prompt lengths of phase 3c
 ATTN_SHAPES = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64),
                "zamba2-7b": (32, 32, 112)}
+# phases 3 and 3b also take the GQA groups wider than 8 heads of the two
+# dense configs still to port (src/repro/configs/): granite-34b (MQA, 48
+# heads over 1) and mistral-large-123b (96 over 8); phase 3c also takes
+# dbrx-132b's prefill attention (phase 12)
+DECODE_SHAPES = {**ATTN_SHAPES, "granite-34b": (48, 1, 128),
+                 "mistral-large-123b": (96, 8, 128)}
+FLASH_SHAPES = {**ATTN_SHAPES, "dbrx-132b": (48, 8, 128)}
 FLASH_LENGTHS = (8, 40, 704, 2048)
 
 
@@ -336,7 +354,7 @@ def phase_kernels(torch, decode_attention, decode_attention_ref) -> None:
     """Kernel vs plain version at the decode shapes of both served models."""
     b, s = 8, 1024
     lens = [1, s, 37, 129, 400, 700, 1000, 255]
-    for model, (h, kvh, hd) in ATTN_SHAPES.items():
+    for model, (h, kvh, hd) in DECODE_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device="cuda").manual_seed(SEED)
             kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -413,7 +431,7 @@ def phase_paged_kernels(torch) -> None:
     b, nb, bs = 8, 64, 16
     s = nb * bs
     lens = [1, s, 37, 129, 400, 700, 1000, 255]
-    for model, (h, kvh, hd) in ATTN_SHAPES.items():
+    for model, (h, kvh, hd) in DECODE_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -537,11 +555,19 @@ def _wrappers() -> dict:
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_path"):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
 
 
 def read_counts() -> dict:
     """Each kernel's launches since reset_counts, by name."""
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_paths(name: str) -> dict:
+    """One kernel's launches since reset_counts by the path its entry
+    point took (flash_attention, moe_gmm)."""
+    return dict(_wrappers()[name].launches_by_path)
 
 
 def check_launches(counts: dict, want: dict) -> None:
@@ -1368,14 +1394,19 @@ def phase_ecg(torch, device: str = "cuda", n_samples: int = 1024,
                             "logit_err": logit_err}
 
 
+def flash_flops(q) -> int:
+    """4 hd flops per (query, key) pair on or below the diagonal (q.k and
+    p.v) for every head."""
+    b, s, h, hd = q.shape
+    return 4 * hd * h * b * s * (s + 1) // 2
+
+
 def flash_bound_ms(q, k) -> tuple:
     """Least time for one causal prefill attention call: q, k, v read once
-    and the output written once; 4 hd flops per (query, key) pair on or
-    below the diagonal (q.k and p.v) for every head."""
-    b, s, h, hd = q.shape
+    and the output written once; ``flash_flops`` of work."""
     item = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * item
-    flops = 4 * hd * h * b * s * (s + 1) // 2
+    flops = flash_flops(q)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1392,16 +1423,24 @@ def sdpa_causal_call(q, k, v):
 
 def flash_case_ms(torch, sets) -> dict:
     """Kernel vs plain on every set (q, k, v), then kernel, plain, SDPA and
-    bound times per call over all sets."""
+    bound times per call over all sets, and the kernel's TFLOP/s.  On the
+    card each call must take the path its dtype picks (bf16: the
+    tensor-core kernel; f32: the CUDA-core one)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_ref,
     )
     err, lib_err = 0.0, 0.0
     for q, k, v in sets:
+        paths = dict(flash_attention.launches_by_path)
         got, want = flash_attention(q, k, v), flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         name = str(q.dtype).split(".")[-1]
+        path = "wgmma" if name == "bfloat16" else "fma"
+        if q.is_cuda and flash_attention.launches_by_path[path] \
+                != paths[path] + 1:
+            raise RuntimeError(f"flash_attention {tuple(q.shape)} {name}: "
+                               f"the call did not take the {path} path")
         e = float((got.float() - want.float()).abs().max())
         if not torch.allclose(got.float(), want.float(), rtol=TOL[name],
                               atol=TOL[name]):
@@ -1412,15 +1451,18 @@ def flash_case_ms(torch, sets) -> dict:
         lib_err = max(lib_err, float((sdpa_causal_call(q, k, v).float()
                                       - want.float()).abs().max()))
     bounds = [flash_bound_ms(q, k) for q, k, _ in sets]
-    return dict(err=err, lib_err=lib_err, ms=time_ms(flash_attention, sets),
+    ms = time_ms(flash_attention, sets)
+    flops = sum(flash_flops(q) for q, _, _ in sets) / len(sets)
+    return dict(err=err, lib_err=lib_err, ms=ms,
                 plain_ms=time_ms(flash_attention_ref, sets),
                 library_ms=time_ms(sdpa_causal_call, sets),
                 bound_ms=sum(t for t, _ in bounds) / len(bounds),
                 bound_by=max(bounds)[1], host_ms=eager_ms(flash_attention,
-                                                          sets))
+                                                          sets),
+                tflops=flops / ms / 1e9 if ms else 0.0)
 
 
-def phase_flash_kernels(torch, device: str = "cuda", shapes=ATTN_SHAPES,
+def phase_flash_kernels(torch, device: str = "cuda", shapes=FLASH_SHAPES,
                         lengths=FLASH_LENGTHS) -> None:
     """The flash kernel vs its plain version at the prefill shapes of the
     served models, one prompt a call (B 1), f32 and bf16."""
@@ -1438,11 +1480,11 @@ def phase_flash_kernels(torch, device: str = "cuda", shapes=ATTN_SHAPES,
                 name = str(dtype).split(".")[-1]
                 log(f"[kernel] flash_attention {model} {name} B=1 S={s} "
                     f"H={h} KVH={kvh} hd={hd}: max_abs_err={r['err']:.3g} "
-                    f"(tol {TOL[name]}) ms={r['ms']:.4f} plain_ms="
-                    f"{r['plain_ms']:.4f} sdpa_ms={r['library_ms']:.4f} "
-                    f"(sdpa err {r['lib_err']:.3g}) bound_ms="
-                    f"{r['bound_ms']:.4f} ({r['bound_by']}); eager call "
-                    f"with host launch cost {r['host_ms']:.4f} ms")
+                    f"(tol {TOL[name]}) ms={r['ms']:.4f} ({r['tflops']:.1f} "
+                    f"TFLOP/s) plain_ms={r['plain_ms']:.4f} sdpa_ms="
+                    f"{r['library_ms']:.4f} (sdpa err {r['lib_err']:.3g}) "
+                    f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); eager "
+                    f"call with host launch cost {r['host_ms']:.4f} ms")
                 del sets
 
 
@@ -1858,14 +1900,34 @@ def gmm_inputs(torch, e, c, d, f, dtype, device, gen):
     return x, w
 
 
+def gmm_flops(x, w) -> int:
+    """2 E C D F (every capacity row is computed)."""
+    e, c, d = x.shape
+    return 2 * e * c * d * w.shape[2]
+
+
+def gmm_path(x, w) -> str:
+    """The path csrc/moe_gmm.cu's entry point should take for these
+    inputs (its note): f32; bf16 decode at C <= 16; bf16 wgmma where TMA
+    takes the strides and pointers; bf16 WMMA elsewhere."""
+    c, d, f = x.shape[1], x.shape[2], w.shape[2]
+    if x.dtype != w.dtype or str(x.dtype) != "torch.bfloat16":
+        return "f32"
+    if c <= 16:
+        return "decode"
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w))
+    return "wgmma" if d % 8 == 0 and f % 8 == 0 and d and aligned \
+        else "wmma"
+
+
 def gmm_bound_ms(x, w) -> tuple:
     """Least time for one grouped matmul: x and w read once, the output
-    written once; 2 E C D F flops (every capacity row is computed)."""
+    written once; ``gmm_flops`` of work."""
     e, c, d = x.shape
     f = w.shape[2]
     item = x.element_size()
     nbytes = (x.numel() + w.numel() + e * c * f) * item
-    flops = 2 * e * c * d * f
+    flops = gmm_flops(x, w)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1881,14 +1943,21 @@ def bmm_call(x, w):
 def gmm_case_ms(torch, sets, timed: bool = True) -> dict:
     """Kernel vs plain on every set (x, w), elementwise (GMM_TOL, printed
     as a share of the tolerance) and normwise (GMM_NORM_TOL); then kernel,
-    plain, torch.bmm and bound times per call.  The plain version is timed
-    over the first three sets only: each of its bf16 calls makes an f32
-    copy of a weight matrix (4.2 GB at dbrx-132b's widths)."""
+    plain, torch.bmm and bound times per call, and the kernel's TFLOP/s.
+    On the card each call must take the path ``gmm_path`` names.  The
+    plain version is timed over the first three sets only: each of its
+    bf16 calls makes an f32 copy of a weight matrix (4.2 GB at dbrx-132b's
+    widths)."""
     from repro_torch.kernels.moe_gmm import gmm, gmm_ref
     err, rel, worst = 0.0, 0.0, 0.0
     for x, w in sets:
+        paths = dict(getattr(gmm, "launches_by_path", {}))
         got, want = gmm(x, w), gmm_ref(x, w)
         torch.cuda.synchronize()
+        path = gmm_path(x, w)
+        if x.is_cuda and gmm.launches_by_path[path] != paths[path] + 1:
+            raise RuntimeError(f"gmm {tuple(x.shape)} @ {tuple(w.shape)}: "
+                               f"the call did not take the {path} path")
         name = str(x.dtype).split(".")[-1]
         tol = GMM_TOL[name]
         diff = (got.float() - want.float()).abs()
@@ -1904,19 +1973,23 @@ def gmm_case_ms(torch, sets, timed: bool = True) -> dict:
         err, rel = max(err, float(diff.max())), max(rel, r)
         worst = max(worst, ratio)
         del got, want, diff
-    out = dict(err=err, rel=rel, worst=worst)
+    out = dict(err=err, rel=rel, worst=worst, path=path)
     if timed:
         bounds = [gmm_bound_ms(x, w) for x, w in sets]
-        out.update(ms=time_ms(gmm, sets), plain_ms=time_ms(gmm_ref, sets[:3]),
+        ms = time_ms(gmm, sets)
+        flops = sum(gmm_flops(x, w) for x, w in sets) / len(sets)
+        out.update(ms=ms, plain_ms=time_ms(gmm_ref, sets[:3]),
                    library_ms=time_ms(bmm_call, sets),
                    bound_ms=sum(t for t, _ in bounds) / len(bounds),
-                   bound_by=max(bounds)[1])
+                   bound_by=max(bounds)[1],
+                   tflops=flops / ms / 1e9 if ms else 0.0)
         torch.cuda.empty_cache()
     return out
 
 
 def gmm_times(r) -> str:
-    return (f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bmm_ms="
+    return (f"ms={r['ms']:.4f} ({r['tflops']:.1f} TFLOP/s, {r['path']} "
+            f"path) plain_ms={r['plain_ms']:.4f} bmm_ms="
             f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']})")
 
@@ -1943,13 +2016,14 @@ def phase_gmm_kernels(torch, device: str = "cuda", cases=GMM_CASES,
             torch.cuda.empty_cache()
 
 
-def drop_accounting(torch, engine, reqs, prefill_field: str):
+def drop_accounting(torch, engine, reqs, prefill_field: str, caps=None):
     """``reqs`` through an engine like ``engine`` whose prefill records the
     requests each call holds, with ``moe_block`` wrapped to count the
     (token, expert) pairs each call drops at capacity (summed over the
     layers, on the device, read once at the end).  Returns ({rid: pairs
     dropped in the prefill calls that held it}, pairs dropped in decode
-    steps, {rid: tokens}).  The program itself counts nothing."""
+    steps, {rid: tokens}); a ``caps`` list gets (prefill?, capacity) of
+    every moe_block call.  The program itself counts nothing."""
     import dataclasses
 
     import repro_torch.models.transformer as transformer_mod
@@ -1967,6 +2041,8 @@ def drop_accounting(torch, engine, reqs, prefill_field: str):
             cfg.n_experts, device=x.device)).sum(0)
         cap = moe_mod.expert_capacity(t, cfg)
         drops.append((current["rids"], (counts - cap).clamp(min=0).sum()))
+        if caps is not None:
+            caps.append((current["rids"] is not None, cap))
         return block(p, x, cfg)
 
     prefill = getattr(engine.bundle, prefill_field)
@@ -2061,6 +2137,31 @@ def decode_step_gate(torch, params, engine, step, batch, tag):
     return rel, flips, seen["gmm"]
 
 
+def check_gmm_paths(tag, paths, caps, n, stats) -> None:
+    """Phase 12's path gate: a run's gmm launches by path against the
+    capacities of its MoE calls (``caps`` from drop_accounting over the
+    same requests, which the engine batches the same way): a call of
+    capacity > 16 takes the wgmma path (prefill), one of capacity <= 16
+    the decode path (every decode step, and a prefill of few enough
+    tokens: 32 tokens give capacity 16 at dbrx-132b's top-4 of 16 experts
+    and factor 1.25), and no launch takes another path."""
+    if len(caps) != n * (stats["prefill_calls"] + stats["decode_steps"]):
+        raise RuntimeError(f"{tag} the capacity run made {len(caps)} MoE "
+                           f"calls; the measured run's schedule differs")
+    want = dict.fromkeys(paths, 0)
+    want["wgmma"] = 3 * sum(cap > 16 for _, cap in caps)
+    want["decode"] = 3 * sum(cap <= 16 for _, cap in caps)
+    pre = [cap for prefill, cap in caps if prefill]
+    log(f"{tag} gmm launches by path {paths}: {3 * sum(c > 16 for c in pre)}"
+        f" of the {3 * len(pre)} prefill launches on wgmma (capacities "
+        f"{sorted(set(pre))}), every decode step's {3 * (len(caps) - len(pre))}"
+        f" on the decode path")
+    if paths != want or not all(cap <= 16 for prefill, cap in caps
+                                if not prefill):
+        raise RuntimeError(f"{tag} gmm launches by path {paths}, want "
+                           f"{want}")
+
+
 def peak_gb(torch, device) -> float:
     """Peak device memory since the last reset, GB (0 off the card)."""
     if torch.device(device).type != "cuda":
@@ -2104,9 +2205,11 @@ def phase_moe(torch, device: str = "cuda", reduced: bool = False,
         engine = ServeEngine(bundle, params, EngineConfig(
             slots=slots, cache_len=cache_len, pad_to=pad_to,
             max_prefill_batch=8, paged=paged, block_size=16), device=device)
-        # the first run, also the warm-up: pairs dropped at capacity
+        # the first run, also the warm-up: pairs dropped at capacity, and
+        # the capacity of every MoE call
+        caps = []
         drops, decode_drops, first = drop_accounting(
-            torch, engine, reqs(), f"prefill_{kind}")
+            torch, engine, reqs(), f"prefill_{kind}", caps)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -2114,6 +2217,7 @@ def phase_moe(torch, device: str = "cuda", reduced: bool = False,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, stats = read_counts(), engine.stats()
+        gmm_paths = read_paths("moe_gmm")
         if len(done) != 16 or not all(r.done and len(r.out) == max_new
                                       and not r.oom for r in done):
             raise RuntimeError(f"{tag} not every request finished with its "
@@ -2125,6 +2229,7 @@ def phase_moe(torch, device: str = "cuda", reduced: bool = False,
             "moe_gmm": 3 * n * calls,
             "flash_attention": stats["prefill_calls"] * n,
             decode: stats["decode_steps"] * n, other: 0})
+        check_gmm_paths(tag, gmm_paths, caps, n, stats)
         tokens = {r.rid: r.out for r in done}
         repeat = sum(first[rid] == tokens[rid] for rid in tokens)
         line = (f"{sum(drops.values())} pairs dropped at capacity in prefill "
@@ -2182,7 +2287,8 @@ def phase_moe(torch, device: str = "cuda", reduced: bool = False,
             log(f"{tag}[profile] gmm kernel: {gmm_us / 3e3:.3f} ms of "
                 f"{busy:.3f} ms device busy a step ({share:.3f})")
         results["paged" if paged else "dense"] = dict(
-            tokens=tokens, counts=counts, stats=stats, wall=wall,
+            tokens=tokens, counts=counts, gmm_paths=gmm_paths, stats=stats,
+            wall=wall,
             tok_s=n_tok / wall, split=split, drops=drops,
             decode_drops=decode_drops, step_rel=rel, flips=flips,
             gmm_share=share, decode_sets=None if paged else sets)
@@ -2244,6 +2350,7 @@ def gmm_entry(moe) -> dict:
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:40",
         "launches": moe["dense"]["counts"]["moe_gmm"],
+        "launches_by_path": moe["dense"]["gmm_paths"],
         "max_abs_err": max(d["err"], pre["err"]),
         "rel_err": max(d["rel"], pre["rel"]),
         "ms": d["ms"],
@@ -2262,6 +2369,38 @@ def gmm_entry(moe) -> dict:
                    "over one 704-token prefill's 24 (cap 224); rel_err is "
                    "the largest normwise error there, the gate",
     }
+
+
+def tensor_core_report(build) -> None:
+    """Phase 2's check of the tensor-core kernels: each one's registers
+    and spills from ``-Xptxas -v`` (none may spill), any serialisation
+    warning of ptxas (C7520: wgmma waits inserted by the compiler), and
+    the count of wgmma instructions (HGMMA in the SASS) in each library."""
+    for name in ("flash_attention", "moe_gmm"):
+        lib = build.library_path(name)
+        text = lib.with_suffix(".log").read_text()
+        for entry in text.split("Compiling entry function")[1:]:
+            kernel = re.search(r"'(\S+?)'", entry).group(1)
+            if "wgmma_kernel" not in kernel:
+                continue
+            regs = re.search(r"Used (\d+) registers", entry).group(1)
+            spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
+            log(f"[build] {name} {kernel[-60:]}: {regs} registers, {spill} "
+                f"bytes spill stores")
+            if int(spill):
+                raise RuntimeError(f"{name}: {kernel} spills {spill} bytes")
+        serial = re.findall(r"C7520[^\n]*", text)
+        # the toolkit is found where the build found nvcc
+        cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        n_wgmma = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"[build] {name}: {n_wgmma} wgmma (HGMMA) instructions in the "
+            f"SASS; ptxas serialisation warnings: {len(serial)}")
+        if not n_wgmma or serial:
+            raise RuntimeError(f"{name}: no wgmma in the library, or ptxas "
+                               f"serialised it: {serial}")
 
 
 def main() -> int:
@@ -2297,6 +2436,7 @@ def main() -> int:
             log(f"[build] {name}: {len(regs)} kernels, registers "
                 f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
                 f"stores {sorted({int(x) for x in spills})} bytes")
+    tensor_core_report(_build)
     t_total = time.perf_counter()
 
     phase_kernels(torch, decode_attention, decode_attention_ref)

@@ -34,9 +34,14 @@
 // averaging 400 positions that is ~13 MB a layer, ~4 us at 3.35 TB/s.  The
 // paged form adds the row's used table entries (4 bytes per BS positions).
 //
-// Design: one thread block per (b, kv_head).  Its `rep` query rows stay in
-// registers; the block loops over the cache only up to kv_len[b] (the TPU
-// kernel's block skip comes for free).  G lanes share one cache row, each
+// Design: one thread block per (b, kv_head, chunk of at most 8 of the
+// group's `rep` query rows): a group of rep <= 8 heads is one block, a
+// wider one (granite-34b's 48 heads over 1 KV head, mistral-large-123b's
+// 12) splits over ceil(rep / 8) blocks, each keeping its rows in the same
+// register arrays, so the cache rows are re-read once per chunk (from L2
+// when the chunks run together).  The rows stay in registers; the block
+// loops over the cache only up to kv_len[b] (the TPU kernel's block skip
+// comes for free).  G lanes share one cache row, each
 // reading 16 bytes of it; G is HD / (16 bytes) rounded up to a power of
 // two, so that a row maps onto lanes of one warp and the shuffles stay
 // inside it (hd 112, zamba2-7b's: 14 of 16 lanes in bf16, 28 of 32 in f32;
@@ -50,9 +55,10 @@
 // Any block size works for the paged form: every position computes its own
 // address, and a page boundary is no boundary for the loop.
 //
-// Known limit: the grid is B * KVH blocks (64 at 8 slots of qwen3-4b), which
-// leaves most of the 132 SMs idle; splitting the KV axis across blocks, and
-// cp.async/TMA page loads, are later work.
+// Known limit: the grid is B * KVH * ceil(rep / 8) blocks (64 at 8 slots of
+// qwen3-4b), which leaves most of the 132 SMs idle; splitting the KV axis
+// across blocks, sharing one read of a cache row between the chunks of a
+// wide group, and cp.async/TMA page loads, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +71,9 @@ constexpr int kThreads = 128;
 // Most block-table entries one row may have: the table lives in dynamic
 // shared memory beside the (<= 34 KB) static merge buffers, under 48 KB.
 constexpr int kMaxTableBlocks = 2048;
+// Query rows one block holds in registers (the REP of the widest
+// instantiation); wider GQA groups split over blocks.
+constexpr int kMaxRows = 8;
 
 __host__ __device__ constexpr int pow2_at_least(int n) {
   int p = 1;
@@ -118,8 +127,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// REP is `rep` rounded up to a power of two; rows r >= rep are zero
-// queries whose results are never written.  PAGED picks the row address.
+// REP is the block's row count (min(rep, 8)) rounded up to a power of
+// two; rows past it are zero queries whose results are never written.
+// PAGED picks the row address.
 template <typename T, int HD, int REP, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -142,8 +152,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sm_acc[NG][REP][HD];
   extern __shared__ int sm_tbl[];      // paged: this row's block table
 
-  const int b = blockIdx.x / KVH;
-  const int g = blockIdx.x % KVH;
+  const int chunks = (rep + kMaxRows - 1) / kMaxRows;  // 1 for rep <= 8
+  const int b = blockIdx.x / (KVH * chunks);
+  const int g = blockIdx.x / chunks % KVH;
+  const int head0 = g * rep + blockIdx.x % chunks * kMaxRows;  // first row
+  const int rows = min(kMaxRows, g * rep + rep - head0);       // <= REP
   const int lane = threadIdx.x % G;
   const int grp = threadIdx.x / G;
   const int d0 = lane * P;
@@ -155,8 +168,8 @@ __global__ void __launch_bounds__(kThreads)
   float qr[REP][P];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
-    if (r < rep && live) {
-      load_pack(q + (static_cast<size_t>(b) * H + g * rep + r) * HD + d0,
+    if (r < rows && live) {
+      load_pack(q + (static_cast<size_t>(b) * H + head0 + r) * HD + d0,
                 qr[r]);
 #pragma unroll
       for (int e = 0; e < P; ++e) qr[r][e] /= sqrt_hd;  // as the reference
@@ -280,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // merge the groups' online-softmax states in fixed group order
-  for (int o = threadIdx.x; o < rep * HD; o += kThreads) {
+  for (int o = threadIdx.x; o < rows * HD; o += kThreads) {
     const int r = o / HD;
     const int d = o % HD;
     float mx = -INFINITY;
@@ -293,7 +306,7 @@ __global__ void __launch_bounds__(kThreads)
         num = fmaf(sm_acc[gi][r][d], w, num);
       }
     }
-    store(out + (static_cast<size_t>(b) * H + g * rep + r) * HD + d,
+    store(out + (static_cast<size_t>(b) * H + head0 + r) * HD + d,
           num / fmaxf(den, 1e-30f));
   }
 }
@@ -302,7 +315,7 @@ template <typename T, int HD, bool PAGED>
 cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* kv_len,
                       T* out, int B, const Layout& lay, int KVH, int rep,
                       cudaStream_t stream) {
-  const dim3 grid(B * KVH);
+  const dim3 grid(B * KVH * ((rep + kMaxRows - 1) / kMaxRows));
   const size_t smem = PAGED ? sizeof(int) * lay.nb : 0;
   if (rep == 1) {
     decode_attention_kernel<T, HD, 1, PAGED>
@@ -316,12 +329,10 @@ cudaError_t launch_hd(const T* q, const T* k, const T* v, const int* kv_len,
     decode_attention_kernel<T, HD, 4, PAGED>
         <<<grid, kThreads, smem, stream>>>(q, k, v, kv_len, out, lay, KVH,
                                            rep);
-  } else if (rep <= 8) {
-    decode_attention_kernel<T, HD, 8, PAGED>
+  } else {   // 8 rows a block; a group wider than 8 takes several blocks
+    decode_attention_kernel<T, HD, kMaxRows, PAGED>
         <<<grid, kThreads, smem, stream>>>(q, k, v, kv_len, out, lay, KVH,
                                            rep);
-  } else {
-    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }

@@ -24,7 +24,6 @@ from repro_torch.kernels.decode_attention.ref import (
 )
 
 HEAD_DIMS = (32, 64, 112, 128)
-MAX_REP = 8
 MAX_TABLE_BLOCKS = 2048     # kMaxTableBlocks in csrc/decode_attention.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,8 +48,9 @@ def _paged_launcher():
 
 def _check(q, k, v, kv_len, rows: int) -> None:
     """What both kernels take: q (B, H, hd) and k/v (rows, *, KVH, hd) of
-    one dtype, head dim and GQA width the kernel is built for, kv_len (B,)
-    int32; all contiguous on one device."""
+    one dtype and a head dim the kernel is built for, any GQA ratio H / KVH
+    (a group wider than 8 heads splits over blocks on the card), kv_len
+    (B,) int32; all contiguous on one device."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,hd), k/v 4-d of one shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -60,9 +60,8 @@ def _check(q, k, v, kv_len, rows: int) -> None:
     if k.shape[0] != rows or k.shape[3] != hd or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v "
                          f"{tuple(k.shape)}")
-    if hd not in HEAD_DIMS or h // kvh > MAX_REP:
-        raise ValueError(f"head_dim {hd} (supported {HEAD_DIMS}) or GQA "
-                         f"ratio {h // kvh} (supported <= {MAX_REP})")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} (supported {HEAD_DIMS})")
     if kv_len.shape != (b,) or kv_len.dtype != torch.int32:
         raise ValueError(f"kv_len must be ({b},) int32, got "
                          f"{tuple(kv_len.shape)} {kv_len.dtype}")

@@ -18,13 +18,17 @@ from repro_torch import _build
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# what the C entry point reports it launched (csrc/moe_gmm.cu's note):
+# f32 FMAs; bf16 at C <= 16 (decode); bf16 wgmma with a TMA ring (C > 16,
+# D and F multiples of 8, aligned); bf16 WMMA (C > 16, TMA cannot take it)
+PATHS = ("f32", "decode", "wgmma", "wmma")
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("moe_gmm").moe_gmm_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -32,9 +36,10 @@ def _launcher():
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul. x: (E, C, D), w: (E, D, F) of one dtype (float32 or
     bfloat16), contiguous, on one device.  Returns (E, C, F) in x's dtype,
-    accumulated in f32.  ``gmm.launches`` counts kernel launches.  Both
-    paths refuse what the kernel does not take, so what runs on the CPU
-    runs on the card."""
+    accumulated in f32.  ``gmm.launches`` counts kernel launches, and
+    ``gmm.launches_by_path`` counts them by the path the kernel's entry
+    point took (``PATHS``).  Both paths refuse what the kernel does not
+    take, so what runs on the CPU runs on the card."""
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"want x (E,C,D) and w (E,D,F); got ranks "
                          f"{x.dim()} and {w.dim()}")
@@ -58,14 +63,17 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     launch = _launcher()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
-                     _DTYPE_CODE[x.dtype], stream)
+                     _DTYPE_CODE[x.dtype], stream, ctypes.byref(path))
     if err:
         raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
     gmm.launches += 1
+    gmm.launches_by_path[PATHS[path.value]] += 1
     return out
 
 
 gmm.launches = 0
+gmm.launches_by_path = dict.fromkeys(PATHS, 0)

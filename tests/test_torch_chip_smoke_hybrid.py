@@ -60,6 +60,56 @@ def test_flash_kernel_phase_runs_on_cpu(kernels_patched):
             assert float(re.search(r"sdpa err ([0-9.e+-]+)", line)[1]) < 1e-5
 
 
+PTXAS_LOG = """ptxas info    : Compiling entry function '_Z2tc18flash_wgmma_kernelILi128EE' for 'sm_90a'
+ptxas info    : Function properties for _Z2tc18flash_wgmma_kernelILi128EE
+    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 134 registers, used 1 barriers, 64 bytes smem
+ptxas info    : Compiling entry function '_Z22flash_attention_kernelIfLi32EE' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("spill,hgmma,ok", [(0, 3, True), (16, 3, False),
+                                            (0, 0, False)],
+                         ids=["clean", "spills", "no_wgmma"])
+def test_tensor_core_report_gates_on_spills_and_wgmma(tmp_path, spill, hgmma,
+                                                      ok):
+    """Phase 2's report: a tensor-core kernel that spills, or a library
+    without wgmma in its SASS, fails; a CUDA-core kernel's spills do not
+    count."""
+    class Build:
+        @staticmethod
+        def library_path(name):
+            lib = tmp_path / f"lib{name}.so"
+            lib.with_suffix(".log").write_text(PTXAS_LOG.format(spill=spill))
+            return lib
+
+        @staticmethod
+        def _nvcc():
+            return "/toolkit/bin/nvcc"
+
+    sass = "\n".join(["HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ"] * hgmma)
+    lines, tools = [], set()
+
+    def run(cmd, **_):
+        tools.add(cmd[0])
+        return type("R", (), {"stdout": sass})()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "log", lines.append)
+        mp.setattr(chip_smoke.subprocess, "run", run)
+        if ok:
+            chip_smoke.tensor_core_report(Build)
+            # cuobjdump from the toolkit whose nvcc built the libraries
+            assert tools == {"/toolkit/bin/cuobjdump"}
+            assert any("134 registers, 0 bytes spill" in ln for ln in lines)
+            assert any(f"{hgmma} wgmma (HGMMA)" in ln for ln in lines)
+        else:
+            with pytest.raises(RuntimeError):
+                chip_smoke.tensor_core_report(Build)
+
+
 def test_ssd_kernel_phase_runs_on_cpu(kernels_patched):
     """Phase 3d at small shapes (timed, and an untimed edge shape)."""
     chip_smoke.phase_ssd_kernels(torch, device="cpu",

@@ -37,6 +37,16 @@ def _counted(op, ref):
     return call
 
 
+def _counted_gmm(path_of=lambda c: "decode" if c <= 16 else "wgmma"):
+    """Count a CPU gmm call as a launch on the path the card takes for a
+    bf16 call of its capacity (``path_of(C)``)."""
+    def call(x, w):
+        gmm_ops.gmm.launches += 1
+        gmm_ops.gmm.launches_by_path[path_of(x.shape[1])] += 1
+        return gmm_ops.gmm_ref(x, w)
+    return call
+
+
 @pytest.fixture
 def kernels_patched():
     """CUDA timing stubbed; the phases log into the returned list."""
@@ -59,7 +69,7 @@ def moe_patched(kernels_patched):
         mp.setattr(attention, "flash_attention",
                    _counted(flash_ops.flash_attention,
                             flash_ops.flash_attention_ref))
-        mp.setattr(moe, "gmm", _counted(gmm_ops.gmm, gmm_ops.gmm_ref))
+        mp.setattr(moe, "gmm", _counted_gmm())
         yield kernels_patched
 
 
@@ -167,6 +177,44 @@ def test_moe_phase_runs_on_cpu(moe_patched):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= \
         set(entry)
     assert (Path(chip_smoke.ROOT) / entry["source"]).exists()
+
+
+def test_moe_phase_gates_on_gmm_paths(moe_patched):
+    """A prefill launch on another path than its capacity picks fails the
+    path gate."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe, "gmm", _counted_gmm(lambda c: "decode" if c <= 16
+                                            else "wmma"))
+        with pytest.raises(RuntimeError, match="gmm launches by path"):
+            chip_smoke.phase_moe(torch, device="cpu", reduced=True,
+                                 cache_len=64, lengths=(20, 40))
+
+
+def test_gmm_path_gate_reads_capacities():
+    """Capacity > 16 on wgmma, <= 16 on the decode path, and the capacity
+    run must have the measured run's number of MoE calls."""
+    stats = {"prefill_calls": 2, "decode_steps": 3}
+    caps = [(True, 16), (True, 224)] + [(False, 8)] * 3
+    paths = {"f32": 0, "decode": 12, "wgmma": 3, "wmma": 0}
+    chip_smoke.check_gmm_paths("[t]", paths, caps, 1, stats)
+    with pytest.raises(RuntimeError, match="by path"):
+        chip_smoke.check_gmm_paths("[t]", {**paths, "decode": 9, "wmma": 3},
+                                   caps, 1, stats)
+    with pytest.raises(RuntimeError, match="schedule differs"):
+        chip_smoke.check_gmm_paths("[t]", paths, caps[1:], 1, stats)
+
+
+@pytest.mark.parametrize("dtype,c,d,f,path", [
+    (torch.float32, 224, 64, 64, "f32"),
+    (torch.bfloat16, 16, 6144, 10752, "decode"),
+    (torch.bfloat16, 17, 6144, 10752, "wgmma"),
+    (torch.bfloat16, 224, 100, 72, "wmma"),
+    (torch.bfloat16, 224, 96, 130, "wmma"),
+])
+def test_gmm_path_names_the_entry_points_choice(dtype, c, d, f, path):
+    x = torch.empty(2, c, d, dtype=dtype)
+    w = torch.empty(2, d, f, dtype=dtype)
+    assert chip_smoke.gmm_path(x, w) == path
 
 
 def test_moe_phase_gates_on_gmm_launches(moe_patched):

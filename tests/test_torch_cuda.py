@@ -194,6 +194,39 @@ def test_paged_kernel_rows_do_not_depend_on_the_batch(cuda_device):
         assert torch.equal(one[0], full[b])
 
 
+# (H, KVH, hd) of GQA groups wider than 8 heads: granite-34b (MQA, 48 over
+# 1) and mistral-large-123b (96 over 8, ratio 12); the kernel splits such a
+# group's rows over blocks of at most 8
+WIDE_GQA = [(48, 1, 128), (96, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,kvh,hd", WIDE_GQA, ids=["granite", "mistral"])
+def test_decode_kernels_take_wide_gqa_groups(cuda_device, h, kvh, hd, dtype):
+    """Dense and paged kernels at GQA ratios 48 and 12 against their plain
+    versions, mixed kv_len; on identity tables the paged kernel still
+    equals the dense one bit for bit."""
+    lens = [1, 1024, 37, 400, 129, 1000]
+    b, s, bs = len(lens), 1024, 16
+    nb = s // bs
+    q, k, v, kv = _inputs(b, s, kvh, h // kvh, hd, lens, dtype, cuda_device)
+    dense = decode_attention(q, k, v, kv)
+    torch.testing.assert_close(dense.float(),
+                               decode_attention_ref(q, k, v, kv).float(),
+                               **TOL[dtype])
+    args = _paged_inputs(lens, nb, bs, kvh, h // kvh, hd, dtype, cuda_device)
+    torch.testing.assert_close(paged_decode_attention(*args).float(),
+                               paged_decode_attention_ref(*args).float(),
+                               **TOL[dtype])
+    tables = torch.arange(b * nb, dtype=torch.int32,
+                          device=cuda_device).reshape(b, nb)
+    paged = paged_decode_attention(q, k.reshape(b * nb, bs, kvh, hd),
+                                   v.reshape(b * nb, bs, kvh, hd), tables, kv)
+    assert torch.equal(paged, dense)
+
+
 @pytest.mark.cuda
 def test_paged_engine_decode_runs_the_paged_kernel(cuda_device):
     """A paged engine on the card launches the paged kernel once per layer
@@ -409,6 +442,35 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, h, kvh, hd,
                                **TOL[dtype])
 
 
+# (H, KVH, hd) of every model whose prefill runs the flash kernel:
+# qwen3-4b, qwen2-0.5b, zamba2-7b's shared block (chip_smoke.ATTN_SHAPES)
+# and dbrx-132b; prompt lengths around the 64-row tiles, and long ones
+FLASH_WGMMA_SHAPES = [(32, 8, 128), (14, 2, 64), (32, 32, 112),
+                      (48, 8, 128)]
+FLASH_WGMMA_LENGTHS = [1, 13, 63, 64, 65, 127, 700, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", FLASH_WGMMA_LENGTHS)
+@pytest.mark.parametrize("h,kvh,hd", FLASH_WGMMA_SHAPES,
+                         ids=["qwen3", "qwen2", "zamba2", "dbrx"])
+def test_flash_tensor_core_path_matches_plain_version(cuda_device, h, kvh,
+                                                      hd, s):
+    """bf16 prefill through the wgmma kernel (the path the entry point
+    reports), against the plain version at the bf16 tolerance."""
+    gen = torch.Generator(device="cpu").manual_seed(s)
+    q, k, v = (torch.randn(1, s, n, hd, generator=gen).to(cuda_device,
+                                                           torch.bfloat16)
+               for n in (h, kvh, kvh))
+    before = flash_attention.launches_by_path["wgmma"]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_path["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-780m"])
 def test_hybrid_engine_runs_every_kernel(cuda_device, arch):
@@ -498,6 +560,48 @@ def test_gmm_kernel_at_dbrx_decode_shapes(cuda_device, c, d, f):
                                **GMM_TOL[torch.bfloat16])
     rel = float((got.float() - want.float()).norm() / want.float().norm())
     assert rel < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [17, 40, 64, 65, 223, 224, 225])
+@pytest.mark.parametrize("e,d,f", [(16, 6144, 10752), (16, 10752, 6144),
+                                   (4, 6144, 1000)],
+                         ids=["gate_up", "down", "ragged_f"])
+def test_gmm_wgmma_path_at_dbrx_prefill_shapes(cuda_device, e, c, d, f):
+    """Capacities around the m64 blocks and the 256-row tile at
+    dbrx-132b's widths, and an F no 128-column tile divides: the wgmma
+    path (launches_by_path says so), elementwise and normwise."""
+    x, w = _gmm_inputs(e, c, d, f, torch.bfloat16, cuda_device, seed=c)
+    before = dict(gmm.launches_by_path)
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches_by_path["wgmma"] == before["wgmma"] + 1
+    want = gmm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **GMM_TOL[torch.bfloat16])
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,d,f,path", [
+    (torch.bfloat16, 8, 6144, 10752, "decode"),
+    (torch.bfloat16, 16, 256, 136, "decode"),
+    (torch.bfloat16, 17, 100, 72, "wmma"),
+    (torch.bfloat16, 40, 96, 130, "wmma"),
+    (torch.bfloat16, 17, 96, 256, "wgmma"),
+    (torch.float32, 224, 128, 64, "f32"),
+], ids=["decode", "decode_edge", "wmma_d100", "wmma_f130", "wgmma", "f32"])
+def test_gmm_entry_point_picks_the_path_from_the_shape(cuda_device, dtype, c,
+                                                       d, f, path):
+    x, w = _gmm_inputs(2, c, d, f, dtype, cuda_device)
+    before = dict(gmm.launches_by_path)
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in gmm.launches_by_path.items()} == {
+        k: int(k == path) for k in before}
+    torch.testing.assert_close(got.float(), gmm_ref(x, w).float(),
+                               **GMM_TOL[dtype])
 
 
 @pytest.mark.cuda

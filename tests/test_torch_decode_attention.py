@@ -64,22 +64,59 @@ def test_cpu_wrapper_takes_plain_path_and_counts_no_launch():
     assert decode_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep,kvh", [(12, 2), (48, 1)],
+                         ids=["rep12", "rep48"])
+def test_wide_gqa_groups_match_reference_kernel(rep, kvh, dtype):
+    """GQA ratios past 8 (mistral-large-123b's 12, granite-34b's 48 over
+    one KV head) at hd 128: the port's wrapper on the CPU against the
+    reference's Pallas kernel in interpret mode; f32 to F32_TOL, bf16 to
+    one bf16 rounding of the output (2e-2, as above)."""
+    import ml_dtypes
+    s = 40
+    q, k, v, lens = _inputs(3, s, kvh, rep, 128, [1, s, 17])
+    if dtype == "bfloat16":
+        q, k, v = (a.astype(ml_dtypes.bfloat16) for a in (q, k, v))
+    got = decode_attention(*(torch.from_numpy(a.astype(np.float32))
+                             .to(getattr(torch, dtype)) for a in (q, k, v)),
+                           torch.from_numpy(lens))
+    want = jax_op(*map(jnp.asarray, (q, k, v, lens)), impl="pallas",
+                  interpret=True, block_k=8)
+    tol = F32_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    assert got.shape == (3, kvh * rep, 128)
+    np.testing.assert_allclose(np_of(got.float()),
+                               np.asarray(want).astype(np.float32), **tol)
+
+
+def test_wrapper_takes_gqa_ratios_past_8():
+    """The kernel splits a group wider than 8 heads over blocks, so the
+    wrapper takes any ratio; rows of one group still read one KV head."""
+    q, k, v, lens = map(torch.from_numpy, _inputs(2, 8, 1, 9, 32, [3, 8]))
+    out = decode_attention(q, k, v, lens)
+    assert out.shape == (2, 9, 32)
+    for r in range(9):   # each row alone is the same attention
+        one = decode_attention(q[:, r:r + 1].contiguous(), k, v, lens)
+        torch.testing.assert_close(out[:, r:r + 1], one, **F32_TOL)
+
+
 BAD_INPUTS = {
     "hd_unsupported": dict(hd=48),
-    "rep_over_8": dict(rep=9),
     "kv_len_int64": dict(lens_dtype=torch.int64),
     "dtype_mismatch": dict(k_dtype=torch.bfloat16),
     "float16": dict(dtype=torch.float16),
     "not_contiguous": dict(strided=True),
+    "heads_not_a_multiple_of_kv_heads": dict(kvh=2, q_heads=3),
 }
 
 
 @pytest.mark.parametrize("case", list(BAD_INPUTS))
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     opt = BAD_INPUTS[case]
-    hd, rep = opt.get("hd", 32), opt.get("rep", 2)
+    hd = opt.get("hd", 32)
     q, k, v, lens = map(torch.from_numpy,
-                        _inputs(2, 8, 1, rep, hd, [3, 8]))
+                        _inputs(2, 8, opt.get("kvh", 1), 2, hd, [3, 8]))
+    if "q_heads" in opt:
+        q = q[:, :opt["q_heads"]].contiguous()
     dtype = opt.get("dtype", torch.float32)
     q, k, v = q.to(dtype), k.to(opt.get("k_dtype", dtype)), v.to(dtype)
     lens = lens.to(opt.get("lens_dtype", torch.int32))

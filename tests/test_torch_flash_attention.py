@@ -106,6 +106,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     ("gqa", "does not match"),
     ("dtypes", "dtypes"),
     ("strided", "contiguous"),
+    ("misaligned_bf16", "16-byte boundary"),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
     """The checks run before the device is looked at, so a CUDA tensor of
@@ -120,5 +121,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
         v = v.to(torch.bfloat16)
     elif bad == "strided":
         q = torch.zeros(1, 6, 8, hd).transpose(1, 2)
+    elif bad == "misaligned_bf16":
+        # contiguous, but one element past an aligned base: TMA cannot
+        # take it, and the tensor-core kernel has no other way in
+        q = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+        k = v = k.to(torch.bfloat16)
     with pytest.raises(ValueError, match=match):
         flash_attention(q, k, v)

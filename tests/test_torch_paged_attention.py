@@ -72,6 +72,30 @@ def test_plain_version_matches_reference_kernel_and_oracle(bs, rep, hd):
                                             interpret=True)), **F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rep,kvh", [(12, 2), (48, 1)],
+                         ids=["rep12", "rep48"])
+def test_wide_gqa_groups_match_reference_kernel(rep, kvh, dtype):
+    """GQA ratios past 8 (mistral-large-123b's 12, granite-34b's 48 over
+    one KV head) at hd 128 over a shuffled pool: the port's wrapper on the
+    CPU against the reference's Pallas kernel in interpret mode; f32 to
+    F32_TOL, bf16 to one bf16 rounding of the output (2e-2)."""
+    import ml_dtypes
+    nb, bs = 4, 8
+    case = list(_paged_case(3, nb, bs, kvh, rep, 128, [1, nb * bs, bs + 3]))
+    if dtype == "bfloat16":
+        case[:3] = [a.astype(ml_dtypes.bfloat16) for a in case[:3]]
+    got = paged_decode_attention(
+        *(torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+          for a in case[:3]), *map(torch.from_numpy, case[3:]))
+    want = jax_paged_op(*map(jnp.asarray, case), impl="pallas",
+                        interpret=True)
+    tol = F32_TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    assert got.shape == (3, kvh * rep, 128)
+    np.testing.assert_allclose(np_of(got.float()),
+                               np.asarray(want).astype(np.float32), **tol)
+
+
 def test_kv_len_past_the_span_reads_the_whole_table():
     """A finished slot at the cache boundary has kv_len = NB*BS + 1: the
     row attends to its NB*BS positions, as the reference does."""
