@@ -13,17 +13,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    sm_90a), and the build seconds printed, with each tensor-core kernel's
    registers and spills (none may spill), ptxas's wgmma serialisation
    warnings (none allowed) and the wgmma (HGMMA) instructions in the
-   flash and gmm libraries' SASS (cuobjdump; some must be there);
+   flash and gmm libraries' SASS (cuobjdump; some must be there); the
+   decode kernels' registers and spills (none may spill), their cluster
+   size, and the mma.sync (HMMA) instructions of their bf16 path (some
+   must be there);
 3. the dense decode-attention kernel is held against its plain PyTorch
    version on the card at the decode shapes of qwen3-4b, qwen2-0.5b,
    zamba2-7b's shared block (hd 112), granite-34b (48 heads over 1 KV
    head) and mistral-large-123b (96 over 8: groups wider than 8 heads),
    f32 and bf16, with mixed kv_len (1, S, and lengths that are no multiple
    of any tile), and timed beside the plain version, PyTorch's
-   scaled_dot_product_attention and its bound;
+   scaled_dot_product_attention and its bound, with the kernel's ratio to
+   each;
 3b. the paged kernel likewise, over a shuffled pool of B*NB + 7 pages with
-   sentinel table entries past each row's kv_len; with identity tables
-   (NB*BS == S) it must equal the dense kernel bit for bit;
+   sentinel table entries past each row's kv_len, its ratios taken to
+   gather + SDPA as well; with identity tables (NB*BS == S) it must equal
+   the dense kernel bit for bit;
 3c. the causal flash-attention kernel is held against its plain version at
    the prefill shapes of qwen3-4b, qwen2-0.5b, zamba2-7b and dbrx-132b (S
    8, 40, 704, 2048), f32 and bf16, each call on the path its dtype picks
@@ -389,7 +394,8 @@ def phase_kernels(torch, decode_attention, decode_attention_ref) -> None:
                 f" (tol {TOL[name]}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"sdpa_ms={lib_ms:.4f} (sdpa err {sdpa_err:.3g}) "
                 f"bound_ms={bound:.4f} ({by}); eager call with host "
-                f"launch cost {host_ms:.4f} ms")
+                f"launch cost {host_ms:.4f} ms; "
+                + ratios(ms, sdpa=lib_ms, plain=plain_ms, bound=bound))
             del sets
 
 
@@ -481,7 +487,9 @@ def phase_paged_kernels(torch) -> None:
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"gather_ms={gather_ms:.4f} + sdpa_ms(gathered)={lib_ms:.4f}"
                 f" bound_ms={bound:.4f} ({by}); eager call with host launch "
-                f"cost {host_ms:.4f} ms")
+                f"cost {host_ms:.4f} ms; "
+                + ratios(ms, gather_sdpa=gather_ms + lib_ms, sdpa=lib_ms,
+                         plain=plain_ms, bound=bound))
             del sets, dense_sets
 
 
@@ -2403,6 +2411,41 @@ def tensor_core_report(build) -> None:
                                f"serialised it: {serial}")
 
 
+def decode_report(build, lib) -> None:
+    """Phase 2's check of the decode kernels: every instantiation's
+    registers and spills from ``-Xptxas -v`` (none may spill), the blocks
+    of a cluster, and the warp-level MMA (HMMA, mma.sync) instructions of
+    the bf16 tensor-core path in the library's SASS (some must be there)."""
+    path = build.library_path("decode_attention")
+    text = path.with_suffix(".log").read_text()
+    kernels = []
+    for entry in text.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+?)'", entry).group(1)
+        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+        spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+        kernels.append((name, regs, spill))
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    n_mma = sum("HMMA" in line for line in sass.splitlines())
+    spilling = [(n, s) for n, _, s in kernels if s]
+    log(f"[build] decode_attention: {len(kernels)} kernels, registers "
+        f"{min(r for _, r, _ in kernels)}-{max(r for _, r, _ in kernels)}, "
+        f"{sum(s for _, _, s in kernels)} bytes spill stores; clusters of "
+        f"{lib.decode_attention_cluster_blocks()} blocks; {n_mma} mma.sync "
+        f"(HMMA) instructions in the SASS")
+    if not kernels or spilling or not n_mma:
+        raise RuntimeError(f"decode_attention: spills {spilling}, or no "
+                           f"mma.sync in the library ({n_mma} HMMA)")
+
+
+def ratios(ms: float, **others: float) -> str:
+    """The kernel's time over each yardstick, as 'kernel/name x'."""
+    return ", ".join(f"kernel/{name} {ms / t:.2f}x"
+                     for name, t in others.items())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2437,6 +2480,7 @@ def main() -> int:
                 f"{min(regs, default=0)}-{max(regs, default=0)}, spill "
                 f"stores {sorted({int(x) for x in spills})} bytes")
     tensor_core_report(_build)
+    decode_report(_build, _build.load("decode_attention"))
     t_total = time.perf_counter()
 
     phase_kernels(torch, decode_attention, decode_attention_ref)

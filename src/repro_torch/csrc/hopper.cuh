@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, moe_gmm.cu): TMA tensor maps, mbarriers, and the
-// warpgroup MMA (wgmma) instructions those kernels issue.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, moe_gmm.cu, decode_attention.cu): TMA tensor maps,
+// mbarriers, 16-byte asynchronous copies (cp.async), the warp-level MMA
+// (mma.sync, ldmatrix) and the warpgroup MMA (wgmma) instructions the
+// tensor-core kernels issue.
 //
 // Tensor maps.  cuTensorMapEncodeTiled lives in libcuda, which the port's
 // libraries do not link (they link only the CUDA runtime), so the symbol
@@ -119,6 +121,30 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async.cg: cached in L2 only).  With `pred` false nothing is read and
+// the 16 bytes are written as zeros; `gmem` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// Closes the thread's copies issued since the last commit into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's committed groups are in flight.
+// Each thread waits for its own copies only: a __syncthreads() after the
+// wait makes the whole block's copies visible.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Waits until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
@@ -193,6 +219,44 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------ mma.sync (bf16 in, f32 sums)
+// One warp's m16n8k16 product, d += a * b.  Fragments, lane l of the warp,
+// g = l / 4, t = l % 4: a[0] = A(g, 2t..2t+1), a[1] = A(g + 8, 2t..),
+// a[2] = A(g, 2t + 8..), a[3] = A(g + 8, 2t + 8..); b[0] = B(2t..2t+1, g),
+// b[1] = B(2t + 8..2t + 9, g); d[0..1] = D(g, 2t..2t+1), d[2..3] =
+// D(g + 8, 2t..2t+1).
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i, and r[i] is matrix i's fragment:
+// lane l holds its row l / 4, elements 2(l % 4) and 2(l % 4) + 1.  The
+// .trans form holds column l / 4, rows 2(l % 4) and 2(l % 4) + 1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
 }
 
 // ------------------------------------------- wgmma (bf16 in, f32 sums)

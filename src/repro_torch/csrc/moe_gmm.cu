@@ -109,23 +109,6 @@ struct TcTile {
   static_assert(kSmem <= 48 * 1024, "within the default shared memory");
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;      // 0: nothing read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // One stage: the (BC, BD) tile of x at rows c0.., columns d0.., and the
 // (BD, BF) tile of w at rows d0.., columns f0.., zero past every edge.
 template <typename Tile, int BC, int BF, int BD, bool kVec>
@@ -140,15 +123,17 @@ __device__ __forceinline__ void load_stage(const bf16* __restrict__ xe,
     for (int i = tid; i < kXChunks; i += Tile::kThreads) {
       const int r = i / (BD / 8), k = (i % (BD / 8)) * 8;
       const bool ok = c0 + r < C && d0 + k < D;
-      cp_async16(xs + r * Tile::kXLd + k,
-                 ok ? xe + static_cast<size_t>(c0 + r) * D + d0 + k : xe, ok);
+      hopper::cp_async16(
+          xs + r * Tile::kXLd + k,
+          ok ? xe + static_cast<size_t>(c0 + r) * D + d0 + k : xe, ok);
     }
     constexpr int kWChunks = BD * BF / 8;
     for (int i = tid; i < kWChunks; i += Tile::kThreads) {
       const int r = i / (BF / 8), k = (i % (BF / 8)) * 8;
       const bool ok = d0 + r < D && f0 + k < F;
-      cp_async16(ws + r * Tile::kWLd + k,
-                 ok ? we + static_cast<size_t>(d0 + r) * F + f0 + k : we, ok);
+      hopper::cp_async16(
+          ws + r * Tile::kWLd + k,
+          ok ? we + static_cast<size_t>(d0 + r) * F + f0 + k : we, ok);
     }
   } else {
     const bf16 zero = __float2bfloat16(0.0f);
@@ -196,7 +181,7 @@ __global__ void __launch_bounds__(32 * WM * WN)
 
   const int n_steps = (D + BD - 1) / BD;
   load_stage<Tile, BC, BF, BD, kVec>(xe, we, xs, ws, c0, 0, f0, C, D, F);
-  cp_async_commit();
+  hopper::cp_async_commit();
   for (int t = 0; t < n_steps; ++t) {
     if (t + 1 < n_steps) {
       const int s = (t + 1) & 1;
@@ -204,8 +189,8 @@ __global__ void __launch_bounds__(32 * WM * WN)
                                          ws + s * Tile::kWStage, c0,
                                          (t + 1) * BD, f0, C, D, F);
     }
-    cp_async_commit();
-    cp_async_wait_one();              // step t's tiles have landed
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();       // step t's tiles have landed
     __syncthreads();
     const bf16* xt = xs + (t & 1) * Tile::kXStage;
     const bf16* wt = ws + (t & 1) * Tile::kWStage;

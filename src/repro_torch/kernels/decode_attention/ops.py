@@ -49,8 +49,9 @@ def _paged_launcher():
 def _check(q, k, v, kv_len, rows: int) -> None:
     """What both kernels take: q (B, H, hd) and k/v (rows, *, KVH, hd) of
     one dtype and a head dim the kernel is built for, any GQA ratio H / KVH
-    (a group wider than 8 heads splits over blocks on the card), kv_len
-    (B,) int32; all contiguous on one device."""
+    (on the card one cluster reads a KV head's cache once for all of its
+    group's rows, up to 64), kv_len (B,) int32; all contiguous on one
+    device."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,hd), k/v 4-d of one shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

@@ -195,8 +195,8 @@ def test_paged_kernel_rows_do_not_depend_on_the_batch(cuda_device):
 
 
 # (H, KVH, hd) of GQA groups wider than 8 heads: granite-34b (MQA, 48 over
-# 1) and mistral-large-123b (96 over 8, ratio 12); the kernel splits such a
-# group's rows over blocks of at most 8
+# 1) and mistral-large-123b (96 over 8, ratio 12); the kernel holds all of
+# a group's rows in one cluster
 WIDE_GQA = [(48, 1, 128), (96, 8, 128)]
 
 
@@ -225,6 +225,129 @@ def test_decode_kernels_take_wide_gqa_groups(cuda_device, h, kvh, hd, dtype):
     paged = paged_decode_attention(q, k.reshape(b * nb, bs, kvh, hd),
                                    v.reshape(b * nb, bs, kvh, hd), tables, kv)
     assert torch.equal(paged, dense)
+
+
+# The decode kernel's split (csrc/decode_attention.cu): tiles of 32
+# positions, a row's positions shared out over a cluster of 8 blocks in
+# whole tiles, so at S 1024 a block's share is 32 positions up to kv_len
+# 256 and 64 from 257.  kv_len 1, one short of a tile, a tile, one past,
+# the share's edges, one short of S, and S.
+SPLIT_EDGES = [1, 31, 32, 33, 255, 256, 257, 511, 512, 513, 1023, 1024]
+
+
+def _identity_paged(k, v, bs):
+    """k/v (B, S, KVH, hd) as a pool of B*S/BS pages and identity tables."""
+    b, s, kvh, hd = k.shape
+    nb = s // bs
+    tables = torch.arange(b * nb, dtype=torch.int32,
+                          device=k.device).reshape(b, nb)
+    return (k.reshape(b * nb, bs, kvh, hd), v.reshape(b * nb, bs, kvh, hd),
+            tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bs", [16, 5])
+def test_decode_kernels_at_the_split_edges(cuda_device, dtype, bs):
+    """Both entry points against their plain versions at every kv_len
+    where a block's share or a tile begins or ends; paged pages of 16 and
+    of 5 positions (a page boundary is no tile boundary)."""
+    s = 1024
+    q, k, v, kv = _inputs(len(SPLIT_EDGES), s, 2, 4, 128, SPLIT_EDGES,
+                          dtype, cuda_device)
+    torch.testing.assert_close(decode_attention(q, k, v, kv).float(),
+                               decode_attention_ref(q, k, v, kv).float(),
+                               **TOL[dtype])
+    nb = -(-s // bs)
+    args = _paged_inputs(SPLIT_EDGES, nb, bs, 2, 4, 128, dtype, cuda_device)
+    torch.testing.assert_close(paged_decode_attention(*args).float(),
+                               paged_decode_attention_ref(*args).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernels_with_idle_clusters(cuda_device, dtype):
+    """A batch of 16 rows, most at kv_len 1 (seven of each cluster's eight
+    blocks have no positions) and two at kv_len 0 (their whole clusters
+    idle: the kernel writes zeros there); every other row matches its
+    plain version, and the empty rows change nothing around them."""
+    lens = [1, 1, 0, 1, 700, 1, 1, 1, 1, 0, 1, 33, 1, 1, 1, 1]
+    live = [i for i, n in enumerate(lens) if n]
+    q, k, v, kv = _inputs(len(lens), 1024, 8, 4, 128, lens, dtype,
+                          cuda_device)
+    tables = _identity_paged(k, v, 16)
+    for got in (decode_attention(q, k, v, kv),
+                paged_decode_attention(q, *tables, kv)):
+        assert not got[[2, 9]].any()
+        torch.testing.assert_close(
+            got[live].float(),
+            decode_attention_ref(q, k, v, kv)[live].float(), **TOL[dtype])
+        one = decode_attention(q[4:5].contiguous(), k[4:5].contiguous(),
+                               v[4:5].contiguous(), kv[4:5])
+        assert torch.equal(one[0], got[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [112, 128])
+@pytest.mark.parametrize("rep", [1, 4, 6, 12, 48])
+def test_decode_kernels_at_every_gqa_ratio(cuda_device, rep, hd, dtype):
+    """GQA ratios 1 (zamba2-7b's MHA), 4 (qwen3-4b), 6, 12
+    (mistral-large-123b) and 48 (granite-34b) at hd 112 and 128: the dense
+    kernel, and the paged one over pages of 16 and of 5 positions, against
+    their plain versions; on identity tables paged equals dense bit for
+    bit."""
+    lens = [1, 1024, 37, 400, 257, 1000]
+    kvh = 2 if rep < 48 else 1
+    q, k, v, kv = _inputs(len(lens), 1024, kvh, rep, hd, lens, dtype,
+                          cuda_device)
+    dense = decode_attention(q, k, v, kv)
+    torch.testing.assert_close(dense.float(),
+                               decode_attention_ref(q, k, v, kv).float(),
+                               **TOL[dtype])
+    assert torch.equal(paged_decode_attention(q, *_identity_paged(k, v, 16),
+                                              kv), dense)
+    for bs in (16, 5):
+        args = _paged_inputs(lens, -(-1024 // bs), bs, kvh, rep, hd, dtype,
+                             cuda_device)
+        torch.testing.assert_close(
+            paged_decode_attention(*args).float(),
+            paged_decode_attention_ref(*args).float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_decode_kernel_replays_in_a_cuda_graph(cuda_device, paged):
+    """One capture of the entry point; the replay on new inputs copied into
+    the captured buffers equals an eager call on them bit for bit, and
+    the capture counts one launch (the wrapper's counter runs at capture,
+    not at replay)."""
+    lens = [300, 5, 1024, 77]
+    fn = paged_decode_attention if paged else decode_attention
+
+    def args(seed):
+        q, k, v, kv = _inputs(4, 1024, 8, 4, 128, lens, torch.bfloat16,
+                              cuda_device, seed=seed)
+        return (q, *_identity_paged(k, v, 16), kv) if paged else (q, k, v, kv)
+
+    static = args(0)
+    fn(*static)                          # load the library outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = fn.launches
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+    assert fn.launches == before + 1
+    fresh = args(1)
+    for dst, src in zip(static, fresh):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn(*fresh))
 
 
 @pytest.mark.cuda

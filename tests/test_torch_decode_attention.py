@@ -4,6 +4,9 @@ The reference's Pallas kernel runs in interpret mode here, as its own
 tests run it off-TPU.  The port's CUDA kernel needs the card; its on-card
 checks are in tests/test_torch_cuda.py.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,10 @@ from repro.kernels.decode_attention.ref import decode_attention_ref as jax_ref
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
+)
+from repro_torch.kernels.decode_attention.ops import (
+    HEAD_DIMS,
+    MAX_TABLE_BLOCKS,
 )
 from torch_parity import F32_TOL, np_of
 
@@ -89,8 +96,8 @@ def test_wide_gqa_groups_match_reference_kernel(rep, kvh, dtype):
 
 
 def test_wrapper_takes_gqa_ratios_past_8():
-    """The kernel splits a group wider than 8 heads over blocks, so the
-    wrapper takes any ratio; rows of one group still read one KV head."""
+    """The kernel holds a whole GQA group in one cluster, so the wrapper
+    takes any ratio; rows of one group still read one KV head."""
     q, k, v, lens = map(torch.from_numpy, _inputs(2, 8, 1, 9, 32, [3, 8]))
     out = decode_attention(q, k, v, lens)
     assert out.shape == (2, 9, 32)
@@ -124,3 +131,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         k, v = torch.cat([k, k], 1)[:, ::2], torch.cat([v, v], 1)[:, ::2]
     with pytest.raises(ValueError):
         decode_attention(q, k, v, lens)
+
+
+def test_wrapper_limits_match_the_cuda_source():
+    """The wrapper refuses what the kernel would refuse: its head dims are
+    the cases of the source's head-dim switch, and its table limit is the
+    source's kMaxTableBlocks (the C entry point's own check)."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "csrc" / "decode_attention.cu").read_text()
+    limit = re.search(r"constexpr int kMaxTableBlocks = (\d+);", src)
+    assert limit and int(limit.group(1)) == MAX_TABLE_BLOCKS
+    switch = re.search(r"switch \(hd\) \{(.*?)default:", src, re.S)
+    assert switch
+    cases = tuple(int(c) for c in re.findall(r"case (\d+):", switch.group(1)))
+    assert cases == HEAD_DIMS
