@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash and gmm libraries' SASS (cuobjdump; some must be there); the
    decode kernels' registers and spills (none may spill), their cluster
    size, and the mma.sync (HMMA) instructions of their bf16 path (some
-   must be there);
+   must be there); likewise every instantiation of the SSD scan (none may
+   spill; its chunked path's HMMA must be there) and of the conv (none
+   may spill);
 3. the dense decode-attention kernel is held against its plain PyTorch
    version on the card at the decode shapes of qwen3-4b, qwen2-0.5b,
    zamba2-7b's shared block (hd 112), granite-34b (48 heads over 1 KV
@@ -38,7 +40,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 3d. the SSD scan kernel likewise, on y and the final state, at zamba2-7b's
    (B 1 and 4, H 112, P 64, N 64) and mamba2-780m's (H 48, N 128) widths
    for L 1, 3, 255, 256, 700 and 2048, and at the reference tests' edge
-   shapes (G > 1); no PyTorch call computes the scan;
+   shapes (G > 1), each call on the path ssd_path names (bf16 at these
+   widths and more than 8 steps: the chunked tensor-core path; else the
+   step path), with the path and the kernel's ratio to its bound printed;
+   no PyTorch call computes the scan;
 3e. the grouped-matmul kernel of the MoE expert FFN likewise, elementwise
    and normwise, at dbrx-132b's decode shapes (cap 8: gate/up and down) and
    prefill shapes (cap 224 and 40), the reference tests' shapes and ragged
@@ -74,7 +79,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card at the ECG search space's full-width shapes, f32 and bf16, and
    timed beside the plain version, PyTorch's own two-call equivalent
    (depthwise ``F.conv1d``, then a 1x1 ``F.conv1d`` with bias and ReLU)
-   and its bound;
+   and its bound, with its ratio to each and how its input windows are
+   copied (conv_path);
 9. the ECG path at full width: 1,024 synthetic records of the paper's
    (3750, 2) shape, a fixed 7-layer genome with every conv at 32 channels
    (w8a16i16), ``compile_winner`` (300 AdamW steps at batch 64, BN
@@ -91,19 +97,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights from a seed): the launcher, then the 16 requests of phase 4
    through a dense ServeEngine (8 slots, 1024-token cache, exact-length
    buckets) and a paged one (16-token blocks, worst-case pool).  Gates:
-   every request finishes; SSD launches = 81 x prefill calls, flash = 13 x
+   every request finishes; SSD launches = 81 x prefill calls, every one on
+   the chunked path, flash = 13 x
    prefill calls, decode = 13 x decode steps (dense, then paged); paged
    tokens equal dense tokens; one prefill's first-token logits and one
    decode step's logits equal the same calls with the plain versions
    swapped in; finite logits.  tok/s, the prefill/decode split, kernels a
-   decode step and the idle share are printed, and both new kernels are
+   decode step and the idle share are printed, one 700-token prefill's
+   device busy time, the SSD scans' share of it and its idle share
+   (torch.profiler), and both new kernels are
    held against their plain versions and timed at the inputs one prefill
    gave them, the scan normwise (at random init its y is ~1e-5 of the
    mixer's D-skip, so the logits gate cannot see it);
 11. mamba2-780m at its published widths (48 layers, d_model 1536, N 128):
    the launcher behind the router, then 8 of the requests through the
-   dense engine; SSD launches = 48 x prefill calls, the prefill logits
-   gate, and the scan normwise at that prefill's inputs;
+   dense engine; SSD launches = 48 x prefill calls, every one on the
+   chunked path, the prefill logits gate, that prefill's device busy time
+   and the scans' share of it, and the scan normwise at its inputs;
 12. dbrx-132b at its published widths (d_model 6144, 48 heads, 16 experts
    of 10752, top-4) cut to 8 of its 40 layers (bf16, random weights from a
    seed): the launcher on the reduced config (--engine --paged), then the
@@ -1065,6 +1075,17 @@ def conv_bound_ms(x, dw, pw, out) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def conv_path(x) -> str:
+    """How csrc/dwsep_conv1d.cu brings in the tiles' input windows for x
+    (its note): by cp.async in 16- or 4-byte units, the largest on which
+    every record's rows start, else by plain loads."""
+    rec_bytes = x.shape[1] * x.shape[2] * x.element_size()
+    for unit in (16, 4):
+        if x.data_ptr() % unit == 0 and rec_bytes % unit == 0:
+            return f"cp.async{unit}"
+    return "loads"
+
+
 def conv_depthwise_call(x, dw, stride):
     """PyTorch's depthwise conv on the same channels-last input (the first
     of the two library calls; timed as the yardstick, never used by the
@@ -1153,16 +1174,18 @@ def phase_conv_kernels(torch, device: str = "cuda",
                     + (stride, True) for _ in range(n_sets)]
             r = conv_case_ms(torch, sets)
             name = str(dtype).split(".")[-1]
+            rat = ratios(r['ms'], bound=r['bound_ms'], library=r['library_ms'])
             log(f"[kernel] dwsep_conv1d B={b} L={length} C_in={c_in} "
-                f"K={k} C_out={c_out} stride={stride} {name}: max_abs_err="
+                f"K={k} C_out={c_out} stride={stride} {name}: window copy "
+                f"{conv_path(sets[0][0])}, max_abs_err="
                 f"{r['err']:.3g}, {r['worst']:.3g} of the tolerance (rtol = "
                 f"atol = {CONV_TOL[name]}) ms={r['ms']:.4f} "
                 f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
                 f" (two calls: depthwise F.conv1d {r['dw_ms']:.4f} + 1x1 "
                 f"F.conv1d and ReLU {r['pw_ms']:.4f}; library err "
                 f"{r['lib_err']:.3g}) bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']}); eager call with host launch cost "
-                f"{r['host_ms']:.4f} ms")
+                f"({r['bound_by']}; {rat}); eager call with host launch "
+                f"cost {r['host_ms']:.4f} ms")
             del sets
 
 
@@ -1323,17 +1346,20 @@ def phase_ecg(torch, device: str = "cuda", n_samples: int = 1024,
         one = conv_case_ms(torch, [args])
         log(f"[kernel] dwsep_conv1d deployment conv {i} "
             f"{tuple(args[0].shape)} -> C_out {args[2].shape[1]} K="
-            f"{args[1].shape[0]} s={args[4]}: ms={one['ms']:.4f} plain_ms="
+            f"{args[1].shape[0]} s={args[4]} window copy "
+            f"{conv_path(args[0])}: ms={one['ms']:.4f} plain_ms="
             f"{one['plain_ms']:.4f} library_ms={one['library_ms']:.4f} "
-            f"bound_ms={one['bound_ms']:.4f} ({one['bound_by']})")
+            f"bound_ms={one['bound_ms']:.4f} ({one['bound_by']}; "
+            f"{ratios(one['ms'], bound=one['bound_ms'])})")
     log(f"[kernel] dwsep_conv1d over one deployment forward's {len(seen)} "
         f"convs at batch {xb.shape[0]} (per launch, averaged): max_abs_err="
         f"{path['err']:.3g}, {path['worst']:.3g} of the tolerance "
         f"(rtol = atol = {CONV_TOL['float32']}) ms={path['ms']:.4f} plain_ms="
         f"{path['plain_ms']:.4f} library_ms={path['library_ms']:.4f} (two "
         f"calls: {path['dw_ms']:.4f} + {path['pw_ms']:.4f}) bound_ms="
-        f"{path['bound_ms']:.4f} ({path['bound_by']}); eager call with host"
-        f" launch cost {path['host_ms']:.4f} ms")
+        f"{path['bound_ms']:.4f} ({path['bound_by']}; "
+        f"{ratios(path['ms'], bound=path['bound_ms'])}"
+        f"); eager call with host launch cost {path['host_ms']:.4f} ms")
     del seen
 
     # rates: training steps, evaluation, serving at batch 256
@@ -1530,6 +1556,34 @@ def ssd_bound_ms(x, b_mat) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ssd_path_for(dtype, n: int, p: int, length: int) -> str:
+    """The path csrc/ssd.cu's entry point takes for x of ``dtype`` (a
+    torch dtype or its name) with state size ``n``, head dim ``p`` and
+    ``length`` steps on 16-byte aligned tensors (its note): the chunked
+    form on the tensor cores for bf16 at N 64 or 128, P a multiple of 64
+    and more than 8 steps, the recurrence step by step otherwise."""
+    bf16 = str(dtype).split(".")[-1] == "bfloat16"
+    return "chunked" if bf16 and n in (64, 128) and p % 64 == 0 \
+        and length > 8 else "step"
+
+
+def ssd_path(x, b_mat, c_mat) -> str:
+    """ssd_path_for these inputs, their alignment included (y is a fresh
+    allocation, aligned)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, b_mat, c_mat))
+    path = ssd_path_for(x.dtype, b_mat.shape[3], x.shape[3], x.shape[1])
+    return path if aligned else "step"
+
+
+def check_ssd_paths(tag, paths: dict, want: str, n: int) -> None:
+    """Phases 10-11's path gate: every one of a run's ``n`` scans took the
+    path ``want`` (ssd_path_for the model's dtype and widths)."""
+    expect = {name: (n if name == want else 0) for name in paths}
+    if paths != expect:
+        raise RuntimeError(f"{tag} ssd_scan launches by path {paths}, want "
+                           f"{expect}")
+
+
 def ssd_case_ms(torch, sets, chunk: int, timed: bool = True,
                 elementwise: bool = True) -> dict:
     """Kernel vs plain (y and state) on every set (x, dt, a_neg, B, C),
@@ -1537,7 +1591,8 @@ def ssd_case_ms(torch, sets, chunk: int, timed: bool = True,
     (SSD_TOL, printed as a share of the tolerance); then kernel, plain and
     bound times per call over all sets.  ``y_over_x`` is the largest
     ||y|| / ||x|| of a set: the scan's size beside the mixer's D-skip at
-    D = 1."""
+    D = 1.  On the card each call must take the path ssd_path names;
+    ``path`` lists the paths taken."""
     from repro_torch.kernels.ssd import ssd_chunked, ssd_scan
 
     def kernel(*args):
@@ -1547,10 +1602,20 @@ def ssd_case_ms(torch, sets, chunk: int, timed: bool = True,
         return ssd_chunked(*args, chunk)
 
     err, worst, rel, y_over_x = 0.0, 0.0, 0.0, 0.0
+    taken = []
     for args in sets:
+        path = ssd_path(args[0], args[3], args[4])
+        before = dict(ssd_scan.launches_by_path) if args[0].is_cuda else {}
         (y, st), (wy, wst) = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         name = str(args[0].dtype).split(".")[-1]
+        if args[0].is_cuda and ssd_scan.launches_by_path[path] \
+                != before[path] + 1:
+            raise RuntimeError(f"ssd_scan {tuple(args[0].shape)} N="
+                               f"{args[3].shape[3]} {name}: the call did not "
+                               f"take the {path} path")
+        if path not in taken:
+            taken.append(path)
         y_over_x = max(y_over_x, float(wy.float().norm()
                                        / args[0].float().norm()))
         for what, got, want, tol, norm_tol in (
@@ -1571,7 +1636,7 @@ def ssd_case_ms(torch, sets, chunk: int, timed: bool = True,
             err, rel = max(err, float(diff.max())), max(rel, r)
             worst = max(worst, ratio)
     out = dict(err=err, worst=worst, rel=rel, y_over_x=y_over_x,
-               tol_y=SSD_NORM_TOL[name])
+               tol_y=SSD_NORM_TOL[name], path="+".join(taken))
     if timed:
         bounds = [ssd_bound_ms(a[0], a[3]) for a in sets]
         out.update(ms=time_ms(kernel, sets), plain_ms=time_ms(plain, sets),
@@ -1596,11 +1661,14 @@ def phase_ssd_kernels(torch, device: str = "cuda", cases=SSD_CASES,
             r = ssd_case_ms(torch, sets, chunk, timed)
             name = str(dtype).split(".")[-1]
             times = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); no "
-                     f"PyTorch call computes the scan; eager call with host "
-                     f"launch cost {r['host_ms']:.4f} ms") if timed else ""
+                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; "
+                     f"{ratios(r['ms'], bound=r['bound_ms'])}"
+                     f"); no PyTorch call computes the scan; eager call with "
+                     f"host launch cost {r['host_ms']:.4f} ms") if timed \
+                else ""
             log(f"[kernel] ssd_scan B={b} L={length} H={h} P={p} G={g} "
-                f"N={n} chunk={chunk} {name}: max_abs_err={r['err']:.3g}, "
+                f"N={n} chunk={chunk} {name} path={r['path']}: "
+                f"max_abs_err={r['err']:.3g}, "
                 f"{r['worst']:.3g} of the tolerance (y rtol = atol = "
                 f"{SSD_TOL[name]}, state {SSD_TOL['float32']}); normwise "
                 f"{r['rel']:.3g} (tol y {SSD_NORM_TOL[name]}, state "
@@ -1679,6 +1747,48 @@ def prefill_gate(torch, bundle, params, prompt, device, tag):
     return rel, seen
 
 
+def profile_prefill(torch, tag, bundle, params, prompt, device) -> dict:
+    """Where one exact-length prefill's device time goes: the unprofiled
+    wall time of a call (two warm-up calls, then three timed), and under
+    torch.profiler (CUPTI) over three more calls the device busy time, the
+    SSD scan kernels' share of it, and the idle share.  Empty where the
+    profiler saw no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = {"tokens": torch.as_tensor(prompt, device=device)[None],
+             "lens": torch.tensor([len(prompt)], dtype=torch.int32,
+                                  device=device),
+             "cache_len": len(prompt)}
+    for _ in range(2):
+        bundle.prefill_slotted(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        bundle.prefill_slotted(params, batch)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            bundle.prefill_slotted(params, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"{tag} the profiler recorded no device kernels: a prefill's "
+            f"device busy and idle share not measured")
+        return {}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 3e3
+    ssd_ms = sum(e.time_range.elapsed_us() for e in kernels
+                 if "ssd_" in e.name) / 3e3
+    out = dict(busy_ms=busy_ms, ssd_ms=ssd_ms, kernels=len(kernels) // 3,
+               call_ms=call_ms, idle_share=1 - busy_ms / call_ms)
+    log(f"{tag} prefill of {len(prompt)} tokens: device busy {busy_ms:.3f} "
+        f"ms over {out['kernels']} kernels, the SSD scans {ssd_ms:.3f} ms = "
+        f"{ssd_ms / busy_ms:.3f} of it; unprofiled call {call_ms:.3f} ms -> "
+        f"device idle share {out['idle_share']:.3f}")
+    return out
+
+
 def engine_run(torch, engine, reqs):
     """Warm-up run, then the measured run with every count reset just
     before it.  Returns (requests, wall s, counts, stats)."""
@@ -1717,6 +1827,9 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
     cfg, bundle, params = load_model(torch, device, reduced, arch)
     n_groups = _layout(cfg)[0]
     slots, max_new = 8, 16
+    # every prefill of the burst is longer than 8 steps
+    ssd_want = ssd_path_for(cfg.dtype, cfg.ssm_state, cfg.ssm_head_dim,
+                            min(lengths))
 
     def reqs():
         return burst_requests(cfg, max_new, lengths)
@@ -1727,6 +1840,7 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
             slots=slots, cache_len=cache_len, pad_to=1, max_prefill_batch=8,
             paged=paged, block_size=16), device=device)
         done, wall, counts, stats = engine_run(torch, engine, reqs)
+        ssd_paths = read_paths("ssd_scan")
         if len(done) != 16 or not all(r.done and len(r.out) == max_new
                                       and not r.oom for r in done):
             raise RuntimeError(f"{tag} not every request finished with its "
@@ -1737,6 +1851,8 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
             "ssd_scan": stats["prefill_calls"] * cfg.n_layers,
             "flash_attention": stats["prefill_calls"] * n_groups,
             decode: stats["decode_steps"] * n_groups, other: 0})
+        check_ssd_paths(tag, ssd_paths, ssd_want,
+                        stats["prefill_calls"] * cfg.n_layers)
         tokens = {r.rid: r.out for r in done}
         if paged:
             same = sum(tokens[rid] == results["dense"]["tokens"][rid]
@@ -1754,13 +1870,14 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
             f"{slots}, cache_len {cache_len}{', block_size 16' if paged else ''}"
             f": {n_tok} tokens in {wall:.3f}s = {n_tok / wall:.1f} tok/s; "
             f"stats {stats}; launches {counts} (ssd = {stats['prefill_calls']}"
-            f" x {cfg.n_layers}, flash = {stats['prefill_calls']} x "
+            f" x {cfg.n_layers}, all on its {ssd_want} path: {ssd_paths}; "
+            f"flash = {stats['prefill_calls']} x "
             f"{n_groups}, {decode} = {stats['decode_steps']} x {n_groups})"
             + (f"; tokens equal to the dense engine's for {same}/16 requests"
                if paged else ""))
         results["paged" if paged else "dense"] = dict(
             tokens=tokens, counts=counts, stats=stats, wall=wall,
-            tok_s=n_tok / wall, split=split)
+            tok_s=n_tok / wall, split=split, ssd_paths=ssd_paths)
 
         # one mid-run decode step: kernels vs plain versions, same state
         batch = mid_run_batch(torch, engine, reqs(), device)
@@ -1820,6 +1937,9 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
     prompt = max((r.prompt for r in reqs()), key=len)
     pre_rel, seen = prefill_gate(torch, bundle, params, prompt, device,
                                  f"[{arch}]")
+    with torch.no_grad():
+        pre_prof = profile_prefill(torch, f"[{arch}][profile]", bundle,
+                                   params, prompt, device)
     if len(seen["ssd_scan"]) != cfg.n_layers \
             or len(seen["flash_attention"]) != n_groups:
         raise RuntimeError(f"[{arch}] one prefill launched "
@@ -1832,17 +1952,17 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
     for name, r in paths.items():
         lib = (f"sdpa_ms={r['library_ms']:.4f}" if "library_ms" in r
                else "no PyTorch call computes the scan")
-        norm = (f"normwise {r['rel']:.3g} (tol y {r['tol_y']}, state "
-                f"{SSD_NORM_TOL['float32']}), ||y|| / ||x|| "
-                f"{r['y_over_x']:.3g} " if "rel" in r else "")
+        norm = (f"path {r['path']}, normwise {r['rel']:.3g} (tol y "
+                f"{r['tol_y']}, state {SSD_NORM_TOL['float32']}), ||y|| / "
+                f"||x|| {r['y_over_x']:.3g} " if "rel" in r else "")
         log(f"[kernel] {name} at one {len(prompt)}-token prefill's "
             f"{len(seen[name])} launches (per launch, averaged): "
             f"max_abs_err={r['err']:.3g} {norm}ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} {lib} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}); eager call with host launch cost "
-            f"{r['host_ms']:.4f} ms")
+            f"({r['bound_by']}; {ratios(r['ms'], bound=r['bound_ms'])}); "
+            f"eager call with host launch cost {r['host_ms']:.4f} ms")
     del seen
-    results.update(paths=paths, prefill_rel=pre_rel,
+    results.update(paths=paths, prefill_rel=pre_rel, prefill=pre_prof,
                    model=(cfg, bundle, params))
     return results
 
@@ -1870,33 +1990,43 @@ def phase_mamba(torch, device: str = "cuda", reduced: bool = False,
         slots=8, cache_len=cache_len, pad_to=1, max_prefill_batch=8),
         device=device)
     done, wall, counts, stats = engine_run(torch, engine, reqs)
+    ssd_paths = read_paths("ssd_scan")
     if len(done) != n_requests or not all(r.done and len(r.out) == 16
                                           for r in done):
         raise RuntimeError(f"[{arch}] not every request finished")
     check_launches(counts, {"ssd_scan": stats["prefill_calls"] * cfg.n_layers,
                             "flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention": 0})
+    ssd_want = ssd_path_for(cfg.dtype, cfg.ssm_state, cfg.ssm_head_dim,
+                            min(lengths))
+    check_ssd_paths(f"[{arch}]", ssd_paths, ssd_want,
+                    stats["prefill_calls"] * cfg.n_layers)
     n_tok = sum(len(r.out) for r in done)
     log(f"[{arch}] engine: {len(done)} requests, max_new 16, slots 8, "
         f"cache_len {cache_len}: {n_tok} tokens in {wall:.3f}s = "
         f"{n_tok / wall:.1f} tok/s; stats {stats}; ssd_scan launches "
         f"{counts['ssd_scan']} (= {stats['prefill_calls']} x "
-        f"{cfg.n_layers}); its decode step runs no kernel (no attention), "
+        f"{cfg.n_layers}, all on its {ssd_want} path: {ssd_paths}); its "
+        f"decode step runs no kernel (no attention), "
         f"so only its prefill has a logits gate")
     prompt = max((r.prompt for r in reqs()), key=len)
     pre_rel, seen = prefill_gate(torch, bundle, params, prompt, device,
                                  f"[{arch}]")
+    with torch.no_grad():
+        pre_prof = profile_prefill(torch, f"[{arch}][profile]", bundle,
+                                   params, prompt, device)
     r = ssd_case_ms(torch, [a[:5] for a in seen["ssd_scan"]], cfg.ssm_chunk,
                     elementwise=False)
     log(f"[kernel] ssd_scan at one {len(prompt)}-token {arch} prefill's "
-        f"{len(seen['ssd_scan'])} launches (per launch, averaged): "
-        f"max_abs_err={r['err']:.3g} normwise {r['rel']:.3g} (tol y "
-        f"{r['tol_y']}, state {SSD_NORM_TOL['float32']}), "
+        f"{len(seen['ssd_scan'])} launches (per launch, averaged): path "
+        f"{r['path']}, max_abs_err={r['err']:.3g} normwise {r['rel']:.3g} "
+        f"(tol y {r['tol_y']}, state {SSD_NORM_TOL['float32']}), "
         f"||y|| / ||x|| {r['y_over_x']:.3g} ms={r['ms']:.4f} plain_ms="
         f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-        f"({r['bound_by']})")
+        f"({r['bound_by']}; {ratios(r['ms'], bound=r['bound_ms'])})")
     return dict(counts=counts, stats=stats, tok_s=n_tok / wall,
-                prefill_rel=pre_rel, path=r)
+                prefill_rel=pre_rel, path=r, ssd_paths=ssd_paths,
+                prefill=pre_prof)
 
 
 def gmm_inputs(torch, e, c, d, f, dtype, device, gen):
@@ -2411,38 +2541,51 @@ def tensor_core_report(build) -> None:
                                f"serialised it: {serial}")
 
 
-def decode_report(build, lib) -> None:
-    """Phase 2's check of the decode kernels: every instantiation's
-    registers and spills from ``-Xptxas -v`` (none may spill), the blocks
-    of a cluster, and the warp-level MMA (HMMA, mma.sync) instructions of
-    the bf16 tensor-core path in the library's SASS (some must be there)."""
-    path = build.library_path("decode_attention")
+def kernel_report(build, name: str, mma: bool, note: str = "") -> None:
+    """Phase 2's check of one library's instantiations: their registers and
+    spills from ``-Xptxas -v`` (none may spill) and, where ``mma``, the
+    warp-level MMA (HMMA, mma.sync) instructions of its tensor-core path in
+    the library's SASS (some must be there); ``note`` joins the line."""
+    path = build.library_path(name)
     text = path.with_suffix(".log").read_text()
     kernels = []
     for entry in text.split("Compiling entry function")[1:]:
-        name = re.search(r"'(\S+?)'", entry).group(1)
+        kernel = re.search(r"'(\S+?)'", entry).group(1)
         regs = int(re.search(r"Used (\d+) registers", entry).group(1))
         spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
-        kernels.append((name, regs, spill))
-    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass", str(path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    n_mma = sum("HMMA" in line for line in sass.splitlines())
-    spilling = [(n, s) for n, _, s in kernels if s]
-    log(f"[build] decode_attention: {len(kernels)} kernels, registers "
-        f"{min(r for _, r, _ in kernels)}-{max(r for _, r, _ in kernels)}, "
-        f"{sum(s for _, _, s in kernels)} bytes spill stores; clusters of "
-        f"{lib.decode_attention_cluster_blocks()} blocks; {n_mma} mma.sync "
-        f"(HMMA) instructions in the SASS")
-    if not kernels or spilling or not n_mma:
-        raise RuntimeError(f"decode_attention: spills {spilling}, or no "
-                           f"mma.sync in the library ({n_mma} HMMA)")
+        kernels.append((kernel, regs, spill))
+    spilling = [(k, sp) for k, _, sp in kernels if sp]
+    line = (f"[build] {name}: {len(kernels)} kernels, registers "
+            f"{min((r for _, r, _ in kernels), default=0)}-"
+            f"{max((r for _, r, _ in kernels), default=0)}, "
+            f"{sum(sp for _, _, sp in kernels)} bytes spill stores"
+            + (f"; {note}" if note else ""))
+    n_mma = 0
+    if mma:
+        cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+        sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        n_mma = sum("HMMA" in ln for ln in sass.splitlines())
+        line += f"; {n_mma} mma.sync (HMMA) instructions in the SASS"
+    log(line)
+    if not kernels or spilling or (mma and not n_mma):
+        raise RuntimeError(f"{name}: spills {spilling}, or no mma.sync in "
+                           f"the library ({n_mma} HMMA)")
+
+
+def decode_report(build, lib) -> None:
+    """Phase 2's check of the decode kernels (kernel_report), with the
+    blocks of a cluster."""
+    kernel_report(build, "decode_attention", mma=True,
+                  note=f"clusters of {lib.decode_attention_cluster_blocks()}"
+                       f" blocks")
 
 
 def ratios(ms: float, **others: float) -> str:
     """The kernel's time over each yardstick, as 'kernel/name x'."""
-    return ", ".join(f"kernel/{name} {ms / t:.2f}x"
+    return ", ".join(f"kernel/{name} {ms / t:.2f}x" if t else
+                     f"kernel/{name} not timed"
                      for name, t in others.items())
 
 
@@ -2481,6 +2624,8 @@ def main() -> int:
                 f"stores {sorted({int(x) for x in spills})} bytes")
     tensor_core_report(_build)
     decode_report(_build, _build.load("decode_attention"))
+    kernel_report(_build, "ssd", mma=True)
+    kernel_report(_build, "dwsep_conv1d", mma=False)
     t_total = time.perf_counter()
 
     phase_kernels(torch, decode_attention, decode_attention_ref)
@@ -2561,6 +2706,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:68",
         "launches": zc["ssd_scan"],
+        "launches_by_path": zamba["dense"]["ssd_paths"],
         "max_abs_err": zp["ssd_scan"]["err"],
         "rel_err": zp["ssd_scan"]["rel"],
         "ms": zp["ssd_scan"]["ms"],

@@ -20,6 +20,7 @@ KERNEL_SIZES = (1, 3, 5, 7)
 STRIDES = (1, 2, 4)
 MAX_C_IN = 32          # kMaxCin in csrc/dwsep_conv1d.cu
 MAX_C_OUT = 1024       # kMaxCout in csrc/dwsep_conv1d.cu
+TILE = 128             # positions a tile (kTile in csrc/dwsep_conv1d.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

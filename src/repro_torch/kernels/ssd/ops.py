@@ -21,13 +21,19 @@ from repro_torch.kernels.ssd.ref import ssd_chunked
 
 STATE_SIZES = (8, 16, 32, 64, 128)   # N the kernel is built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# what the C entry point reports it launched (csrc/ssd.cu's note): the
+# recurrence step by step on the CUDA cores (f32, and bf16 at other
+# widths), or the chunked form on the tensor cores (bf16, N 64 or 128, P a
+# multiple of 64, x, B, C and y on 16-byte boundaries)
+PATHS = ("step", "chunked")
+CHUNK = 64   # steps a chunk of the chunked path (kQ in csrc/ssd.cu)
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("ssd").ssd_scan_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,10 +80,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     """Mamba-2 SSD scan. x: (B,L,H,P); dt: (B,L,H) f32 after the softplus;
     a_neg: (H,) f32; b/c: (B,L,G,N).  The scan starts from a zero state
     and returns (y (B,L,H,P) in x's dtype, final state (B,H,N,P) f32).
-    ``chunk`` is the plain version's chunk length; the kernel scans step
-    by step and gives the same function.  ``ssd_scan.launches`` counts kernel launches.
-    Both paths refuse what the kernel does not take, so what runs on the
-    CPU runs on the card."""
+    ``chunk`` is the plain version's chunk length; the kernel picks its
+    own (``CHUNK`` steps on its chunked path, one step on its step path)
+    and gives the same function.  ``ssd_scan.launches`` counts kernel
+    launches, one a call, and ``ssd_scan.launches_by_path`` counts them by
+    the path the kernel's entry point took (``PATHS``).  Both paths refuse
+    what the kernel does not take, so what runs on the CPU runs on the
+    card."""
     _check(x, dt, a_neg, b_mat, c_mat, chunk)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk)
@@ -88,16 +97,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
     launch = _launcher()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(),
                      b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(),
                      state.data_ptr(), bsz, length, h, p, g, n,
-                     _DTYPE_CODE[x.dtype], stream)
+                     _DTYPE_CODE[x.dtype], stream, ctypes.byref(path))
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.launches_by_path[PATHS[path.value]] += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -201,3 +201,20 @@ def test_paged_serve_phase_gates_on_flash_launches(served):
                            match="flash_attention launched 0 times"):
             chip_smoke.phase_paged_serve(torch, out["model"], out["tokens"],
                                          device="cpu", reduced=True)
+
+
+@pytest.mark.parametrize("dtype,length,c_in,offset,path", [
+    (torch.float32, 3750, 2, 0, "cp.async16"),   # the ECG input layer
+    (torch.float32, 3744, 32, 0, "cp.async16"),
+    (torch.bfloat16, 3750, 2, 0, "cp.async4"),   # records of 15,000 bytes
+    (torch.bfloat16, 3744, 32, 0, "cp.async16"),
+    (torch.float32, 3744, 32, 1, "cp.async4"),   # x off a 16-byte boundary
+    (torch.bfloat16, 33, 1, 0, "loads"),         # records of 66 bytes
+    (torch.bfloat16, 3744, 32, 1, "loads"),      # x off a 4-byte boundary
+])
+def test_conv_path_names_the_window_copy(dtype, length, c_in, offset, path):
+    """conv_path mirrors csrc/dwsep_conv1d.cu's rule: the windows go by
+    cp.async in the largest unit (16 or 4 bytes) on which every record's
+    rows start, else by plain loads."""
+    x = torch.zeros(2 * length * c_in + offset, dtype=dtype)[offset:]
+    assert chip_smoke.conv_path(x.view(2, length, c_in)) == path

@@ -36,6 +36,16 @@ def _counted(name, module=ops, ref_name=None):
     return call
 
 
+def _counted_ssd(path_of=chip_smoke.ssd_path):
+    """Count a CPU scan as a launch on the path the card's entry point
+    takes for its inputs (``path_of(x, B, C)``)."""
+    def call(x, dt, a_neg, b_mat, c_mat, chunk):
+        ssd_ops.ssd_scan.launches += 1
+        ssd_ops.ssd_scan.launches_by_path[path_of(x, b_mat, c_mat)] += 1
+        return ssd_ops.ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk)
+    return call
+
+
 @pytest.fixture
 def kernels_patched():
     """CUDA timing stubbed; the phases log into the returned list."""
@@ -170,8 +180,7 @@ def hybrid_patched(kernels_patched):
             mp.setattr(attention, name, _counted(name))
         mp.setattr(attention, "flash_attention",
                    _counted("flash_attention", flash_ops))
-        mp.setattr(mamba2, "ssd_scan",
-                   _counted("ssd_scan", ssd_ops, "ssd_chunked"))
+        mp.setattr(mamba2, "ssd_scan", _counted_ssd())
         yield kernels_patched
 
 
@@ -215,3 +224,121 @@ def test_mamba_phase_runs_on_cpu(hybrid_patched):
     assert out["counts"]["ssd_scan"] == 3 * out["stats"]["prefill_calls"]
     assert out["counts"]["flash_attention"] == 0
     assert out["prefill_rel"] == 0.0 and out["path"]["err"] == 0.0
+
+
+def _ssd_tensors(dtype, n, p, length, offset=0):
+    """x (1, length, 2, p) and B, C (1, length, 1, n) of ``dtype``; x
+    starts ``offset`` elements into its storage."""
+    x = torch.zeros(length * 2 * p + offset, dtype=dtype)[offset:]
+    bm = torch.zeros(1, length, 1, n, dtype=dtype)
+    return x.view(1, length, 2, p), bm, bm.clone()
+
+
+@pytest.mark.parametrize("dtype,n,p,length,offset,path", [
+    (torch.bfloat16, 64, 64, 700, 0, "chunked"),   # zamba2-7b's scans
+    (torch.bfloat16, 128, 64, 9, 0, "chunked"),    # mamba2-780m's
+    (torch.bfloat16, 64, 128, 64, 0, "chunked"),
+    (torch.bfloat16, 64, 64, 8, 0, "step"),        # a few steps
+    (torch.float32, 64, 64, 700, 0, "step"),       # f32 on CUDA cores
+    (torch.bfloat16, 32, 64, 700, 0, "step"),
+    (torch.bfloat16, 64, 32, 700, 0, "step"),
+    (torch.bfloat16, 64, 64, 700, 1, "step"),      # x off 16 bytes
+])
+def test_ssd_path_names_the_entry_points_choice(dtype, n, p, length, offset,
+                                                path):
+    """ssd_path mirrors csrc/ssd.cu's rule (its note and the entry point):
+    the chunked tensor-core path for aligned bf16 at N 64/128, P a
+    multiple of 64 and more than 8 steps, the step path otherwise."""
+    x, bm, cm = _ssd_tensors(dtype, n, p, length, offset)
+    assert chip_smoke.ssd_path(x, bm, cm) == path
+    if not offset:
+        assert chip_smoke.ssd_path_for(dtype, n, p, length) == path
+        assert chip_smoke.ssd_path_for(str(dtype).split(".")[-1], n, p,
+                                       length) == path
+
+
+def test_ssd_path_gate_reads_every_scan():
+    """Phases 10-11's gate: all of a run's scans on the wanted path."""
+    chip_smoke.check_ssd_paths("[t]", {"step": 0, "chunked": 81}, "chunked",
+                               81)
+    for paths in ({"step": 1, "chunked": 80}, {"step": 0, "chunked": 80}):
+        with pytest.raises(RuntimeError, match="ssd_scan launches by path"):
+            chip_smoke.check_ssd_paths("[t]", paths, "chunked", 81)
+
+
+def test_hybrid_phase_gates_on_ssd_paths(hybrid_patched):
+    """A run whose scans take another path than the one ssd_path_for
+    names for the model's dtype and widths fails phase 10 (the reduced
+    model is f32: every scan belongs on the step path)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mamba2, "ssd_scan",
+                   _counted_ssd(lambda x, b, c: "chunked"))
+        with pytest.raises(RuntimeError, match="ssd_scan launches by path"):
+            chip_smoke.phase_hybrid(torch, device="cpu", reduced=True,
+                                    cache_len=64, lengths=(4, 40))
+
+
+def test_hybrid_phases_report_the_ssd_path(hybrid_patched):
+    """Phases 10-11 on the CPU: every scan on the step path, as the card
+    would run the reduced f32 models, and the path printed."""
+    out = chip_smoke.phase_mamba(torch, device="cpu", reduced=True,
+                                 cache_len=64, lengths=(4, 40))
+    n = 3 * out["stats"]["prefill_calls"]
+    assert out["ssd_paths"] == {"step": n, "chunked": 0}
+    assert out["path"]["path"] == "step"
+    assert any("all on its step path" in line for line in hybrid_patched)
+    # the prefill profile reads device kernels only: none on the CPU
+    assert out["prefill"] == {}
+    assert any("a prefill's device busy and idle share not measured" in line
+               for line in hybrid_patched)
+
+
+SSD_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116ssd_chunk_kernelILi64EEEv14CUtensorMap_S1_S1_PKfS3_P13__nv_bfloat16Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116ssd_chunk_kernelILi64EEEv14CUtensorMap_S1_S1_PKfS3_P13__nv_bfloat16Pfiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120ssd_step_bf16_kernelILi8EEEvPK13__nv_bfloat16PKfS5_S3_S3_PS1_Pfiiii' for 'sm_90a'
+    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used 89 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("spill,hmma,mma,ok", [
+    (0, 6, True, True), (12, 6, True, False), (0, 0, True, False),
+    (0, 0, False, True), (8, 0, False, False)],
+    ids=["clean", "spills", "no_mma", "no_mma_wanted", "spills_no_mma"])
+def test_kernel_report_gates_on_spills_and_mma(tmp_path, spill, hmma, mma,
+                                               ok):
+    """Phase 2's report of the SSD and conv libraries: any instantiation
+    that spills fails it, and so does an SSD library without mma.sync
+    (HMMA) in its SASS; the conv library is not asked for MMA."""
+    class Build:
+        @staticmethod
+        def library_path(name):
+            lib = tmp_path / f"lib{name}.so"
+            lib.with_suffix(".log").write_text(
+                SSD_PTXAS_LOG.format(spill=spill))
+            return lib
+
+        @staticmethod
+        def _nvcc():
+            return "/toolkit/bin/nvcc"
+
+    sass = "\n".join(["HMMA.16816.F32.BF16 R8, R4, R12, R8"] * hmma)
+    lines, tools = [], set()
+
+    def run(cmd, **_):
+        tools.add(cmd[0])
+        return type("R", (), {"stdout": sass})()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "log", lines.append)
+        mp.setattr(chip_smoke.subprocess, "run", run)
+        if ok:
+            chip_smoke.kernel_report(Build, "ssd", mma=mma)
+            assert "2 kernels, registers 89-128, 0 bytes spill" in lines[0]
+            assert tools == ({"/toolkit/bin/cuobjdump"} if mma else set())
+            assert (f"{hmma} mma.sync (HMMA)" in lines[0]) == mma
+        else:
+            with pytest.raises(RuntimeError):
+                chip_smoke.kernel_report(Build, "ssd", mma=mma)

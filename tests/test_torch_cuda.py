@@ -419,6 +419,35 @@ def test_conv_kernel_matches_plain_version(cuda_device, b, length, c_in, k,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("records,l_out,k,stride", [
+    (2, -1, 7, 1), (2, 0, 7, 1), (2, 1, 5, 2), (3, 1, 3, 4),
+    ("sms+1", 4 * 128 + 1, 7, 1), ("sms+1", 1, 5, 2)],
+    ids=["tile-1", "tile", "tile+1", "tile+1-s4", "grid-tail",
+         "grid-tail-s2"])
+def test_conv_kernel_at_tile_and_grid_tails(cuda_device, records, l_out, k,
+                                            stride, dtype):
+    """L_out = kTile - 1, kTile, kTile + 1 (ops.TILE: the last tile of a
+    record ragged or whole), and B = SMs + 1 records, enough tiles that
+    the persistent grid's blocks walk several each and the last wave is
+    ragged."""
+    from repro_torch.kernels.conv1d.ops import TILE
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    b = sms + 1 if records == "sms+1" else records
+    if l_out <= 1:
+        l_out = TILE + l_out
+    length = (l_out - 1) * stride + k
+    args = _conv_inputs(b, length, 32, k, 32, dtype, cuda_device)
+    got = dwsep_conv1d(*args, stride=stride)
+    torch.cuda.synchronize()
+    assert got.shape == (b, l_out, 32)
+    torch.testing.assert_close(
+        got.float(), dwsep_conv1d_ref(*args, stride=stride).float(),
+        **CONV_TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_conv_kernel_rows_do_not_depend_on_the_batch(cuda_device):
     """No atomics, no cross-record state: a record alone equals the same
     record inside a batch, bit for bit."""
@@ -521,6 +550,78 @@ def test_ssd_kernel_rows_do_not_depend_on_the_batch(cuda_device):
         one = [t[r:r + 1].contiguous() if t.dim() > 1 else t for t in args]
         y1, s1 = ssd_scan(*one, 256)
         assert torch.equal(y1[0], y[r]) and torch.equal(s1[0], state[r])
+
+
+def _ssd_checked(args, path, dtype, chunk=256):
+    """One scan through the wrapper: on ``path`` (launches_by_path), and
+    equal to the plain version at SSD_TOL (y in x's dtype, the f32 state
+    at 1e-4)."""
+    before = dict(ssd_scan.launches_by_path)
+    y, state = ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches_by_path[path] == before[path] + 1
+    want_y, want_state = ssd_chunked(*args, chunk)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    torch.testing.assert_close(y.float(), want_y.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(state, want_state, **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("q", [-1, 0, 1, 65], ids=["Q-1", "Q", "Q+1", "2Q+1"])
+def test_ssd_kernel_at_its_chunk_edges(cuda_device, q, n):
+    """L = Q - 1, Q, Q + 1 and 2Q + 1 of the chunked path's own chunk
+    (ssd ops.CHUNK): the rows past L of the last chunk load as zeros and
+    add nothing, to y or to the state."""
+    from repro_torch.kernels.ssd.ops import CHUNK
+    length = CHUNK + q
+    args = _ssd_inputs(2, length, 8, 64, 1, n, torch.bfloat16, cuda_device)
+    _ssd_checked(args, "chunked", torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_kernel_bf16_takes_large_steps(cuda_device, n):
+    """The chunked path at steps of dt up to 5 (A up to 16): decays over a
+    chunk reach exp(-5000), and cum[t] - cum[s] would lose 1e-4 of the
+    decay's accuracy in plain f32; the f32 state still agrees at 1e-4."""
+    args = _ssd_inputs(2, 200, 8, 64, 2, n, torch.bfloat16, cuda_device,
+                       dt_hi=5.0)
+    _ssd_checked(args, "chunked", torch.bfloat16, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,h,g,n", [(1, 300, 12, 3, 64),
+                                            (2, 130, 8, 2, 128),
+                                            (1, 129, 16, 8, 64)])
+def test_ssd_kernel_with_groups(cuda_device, b, length, h, g, n):
+    """G > 1 on the chunked path: a block serves one head, so the blocks
+    of neighbouring heads read B and C of different groups (h / (H / G));
+    at H 16 over G 8 every other head crosses a group boundary."""
+    args = _ssd_inputs(b, length, h, 64, g, n, torch.bfloat16, cuda_device)
+    _ssd_checked(args, "chunked", torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,p,length,path", [
+    (torch.bfloat16, 64, 64, 150, "chunked"),
+    (torch.bfloat16, 128, 128, 9, "chunked"),
+    (torch.bfloat16, 64, 64, 8, "step"),
+    (torch.bfloat16, 128, 64, 1, "step"),
+    (torch.float32, 64, 64, 150, "step"),
+    (torch.float32, 128, 64, 150, "step"),
+    (torch.bfloat16, 32, 64, 150, "step"),
+    (torch.bfloat16, 64, 32, 150, "step"),
+    (torch.bfloat16, 16, 16, 150, "step"),
+], ids=["bf16-64-64", "bf16-128-128-L9", "bf16-64-64-L8", "bf16-128-64-L1",
+        "f32-64-64", "f32-128-64", "bf16-32-64", "bf16-64-32", "bf16-16-16"])
+def test_ssd_entry_point_picks_the_path_from_the_shape(cuda_device, dtype, n,
+                                                       p, length, path):
+    """Each path of the entry point's rule, held against the plain
+    version: bf16 at N 64/128, P a multiple of 64 and more than 8 steps
+    on the tensor cores, everything else step by step."""
+    args = _ssd_inputs(2, length, 4, p, 2, n, dtype, cuda_device)
+    _ssd_checked(args, path, dtype)
 
 
 @pytest.mark.cuda

@@ -185,3 +185,35 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
         x = x.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match=match):
         ssd_scan(x, dt, a, bm, cm, chunk)
+
+
+# (B, L, H, P, G, N, dt_hi) of the chunk-length cases: a ragged L over
+# several chunks of every length, and steps of dt up to 5
+CHUNK_CASES = {
+    "ragged": (2, 301, 4, 16, 2, 16, 0.1),
+    "large_steps": (1, 200, 4, 16, 2, 16, 5.0),
+}
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_plain_ssd_does_not_depend_on_its_chunk(case, chunk):
+    """The CUDA kernel picks its own chunk (64 steps) where ``repro`` runs
+    256: the plain version at 64, 128 and 256 gives repro's scan.  On the
+    ragged case against ``ssd_chunked`` at 256; at large steps against the
+    naive recurrence, since repro's chunked scan at 256 steps misses 1e-4
+    there by several times (f32 cancellation in cum[t] - cum[s], ROADMAP
+    queue 3), which the port's f64 cumulative sums avoid.  Between chunk
+    lengths the port agrees at f32 1e-5."""
+    b, length, h, p, g, n, dt_hi = CHUNK_CASES[case]
+    arrays = _inputs(b, length, h, p, g, n, seed=12, dt_hi=dt_hi)
+    y, state = ssd_chunked(*_torch(arrays), chunk)
+    if case == "ragged":
+        want = jax.jit(jax_ssd_chunked, static_argnums=5)(*_jax(arrays), 256)
+    else:
+        want = jax_ssd_ref(*_jax(arrays))
+    np.testing.assert_allclose(np_of(y), np_of(want[0]), **REF_TOL)
+    np.testing.assert_allclose(np_of(state), np_of(want[1]), **REF_TOL)
+    y256, state256 = ssd_chunked(*_torch(arrays), 256)
+    np.testing.assert_allclose(np_of(y), np_of(y256), **F32_TOL)
+    np.testing.assert_allclose(np_of(state), np_of(state256), **F32_TOL)
