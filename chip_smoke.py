@@ -134,7 +134,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    the gmm kernel's share of a decode step's device time, its per-call
    times at decode and prefill beside torch.bmm and the bound, and the
    peak device memory are printed;
-13. the last lines are the card (nvidia-smi), a JSON line of every kernel
+13. HALF's own loop at the search space's full width on phase 9's records:
+   EvolutionarySearch (2 generations of 8 children, 4 accepted, 8 initial
+   candidates, 60 steps each, two scheduler threads, the host-overlap
+   pipeline; SEARCH_CUTS lists the cuts against the paper's run), then
+   serve_winner for the low-energy goal behind 2 replicas, answering the
+   validation records.  Gates: no phenotype trained twice (candidates
+   trained = the dormant-gene cache's entries, no retry), the population
+   within its cap, 2 generations each with a front; the conv kernel's
+   launches = conv layers x no-grad forwards of every trained candidate
+   and of the winner; one bucket of phase 9's phenotype at 4 quant
+   settings, trained batched and scalar on the card for 100 steps, gives
+   identical expensive objectives and val_loss within 5e-3 (the winner's
+   phenotype likewise is reported beside a scalar run on records one ulp
+   up); one trained candidate's eval logits equal those with the plain
+   conv swapped in; every served record comes back once, with the
+   winner's validation rates.  The search's wall time split into host
+   work and training, candidates trained a second, batched and scalar
+   steps a second, the bucket's idle share and the conv's share of an
+   evaluation (torch.profiler) are printed;
+14. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -180,6 +199,39 @@ ECG_GENES = dict(op_genes=(57, 57, 55, 55, 61, 51, 52) + (0,) * 8,
 # seven layers; no activation quant on the deployment path, so nothing
 # flips.  Elementwise rtol and atol.
 ECG_LOGIT_TOL = 1e-4
+# Phase 13: HALF's search at the search space's full width (DEFAULT_SPACE:
+# convs up to 32 channels, inputs of 3750 or 1875 samples) on phase 9's
+# records.  The paper runs 100 generations x 20 children, 8 accepted a
+# generation, 16 initial candidates, 300 steps each, on 16,000 records;
+# this run cuts the counts to fit its time, not the widths.
+SEARCH_CFG = dict(generations=2, children_per_gen=8, n_accept=4,
+                  init_population=8, train_steps=60, train_batch=64,
+                  n_workers=2, seed=SEED, goal="low_energy",
+                  pipeline="host_overlap")
+SEARCH_CUTS = ("2 of 100 generations, 8 of 20 children, 4 of 8 accepted, "
+               "8 of 16 initial candidates, 60 of 300 steps, 1,024 of "
+               "16,000 records")
+# the batched-vs-scalar buckets' steps (the search's train_steps, cut to 60
+# to keep the phase near 90 s, does not cut them)
+BUCKET_STEPS = 100
+# batched vs scalar training of one bucket: the reference's own gate
+# (tests/test_trainer_batch.py): expensive objectives identical, val_loss
+# within 5e-3
+BATCH_VAL_LOSS_TOL = 5e-3
+# the bucket's four quant settings (w, a, i genes) of one phenotype.  The
+# gated bucket is phase 9's full-width phenotype: the batched step sums in
+# other orders than the scalar one on the card (batched GEMMs, reductions
+# over another shape), and 100 quantized training steps can carry such
+# rounding into other weights, as far as two scalar runs whose records
+# differ by one f32 ulp drift apart.  On phase 9's phenotype that drift
+# stays far inside the gate (PERF.md §6); the winner's phenotype is
+# trained the same way and reported beside a scalar run on records one
+# ulp up.
+# The first setting (w8a16i16) is the candidate held against the plain
+# conv: a 16-bit activation quant moves an activation that lands on a
+# rounding boundary on one side only by a 16-bit step, which ECG_LOGIT_TOL
+# covers.
+BUCKET_QUANTS = ((1, 1, 1), (0, 1, 1), (1, 0, 1), (1, 1, 0))
 # logits of one full-width decode step, kernel vs plain attention, bf16 end
 # to end, as a normwise relative error ||a - b|| / ||b||: bf16 keeps 8
 # significant bits (2^-8 relative rounding), and a one-ulp difference in an
@@ -1189,10 +1241,12 @@ def phase_conv_kernels(torch, device: str = "cuda",
             del sets
 
 
-def profile_forward(torch, tag, forward, x, forward_ms) -> dict:
-    """Where three deployment forwards' device time goes (torch.profiler):
-    device busy, the conv kernel's share of it, and the idle share against
-    ``forward_ms``, the unprofiled wall time of one forward."""
+def profile_forward(torch, tag, forward, x, forward_ms,
+                    what: str = "deployment forward") -> dict:
+    """Where three calls of ``forward(x)`` spend device time
+    (torch.profiler): device busy, the conv kernel's share of it, and the
+    idle share against ``forward_ms``, the unprofiled wall time of one
+    call; ``what`` names the call in the log."""
     from torch.profiler import ProfilerActivity, profile
     forward(x)
     torch.cuda.synchronize()
@@ -1212,9 +1266,9 @@ def profile_forward(torch, tag, forward, x, forward_ms) -> dict:
                   if "dwsep_conv1d_kernel" in e.name) / 3e3
     out = dict(busy_ms=busy_ms, conv_ms=conv_ms, kernels=len(kernels) // 3,
                conv_share=conv_ms / busy_ms, idle_share=1 - busy_ms / forward_ms)
-    log(f"{tag} deployment forward: device busy {busy_ms:.4f} ms over "
+    log(f"{tag} {what}: device busy {busy_ms:.4f} ms over "
         f"{out['kernels']} kernels, the conv kernel {conv_ms:.4f} ms = "
-        f"{out['conv_share']:.3f} of it; unprofiled forward {forward_ms:.4f}"
+        f"{out['conv_share']:.3f} of it; unprofiled call {forward_ms:.4f}"
         f" ms -> device idle share {out['idle_share']:.3f}")
     return out
 
@@ -1425,7 +1479,7 @@ def phase_ecg(torch, device: str = "cuda", n_samples: int = 1024,
     rates.update(profile_forward(torch, "[ecg-profile]", winner._predict, xb,
                                  forward_ms))
     return launches, path, {"winner": winner, "rates": rates,
-                            "logit_err": logit_err}
+                            "logit_err": logit_err, "data": (tr, va)}
 
 
 def flash_flops(q) -> int:
@@ -2477,6 +2531,301 @@ def phase_moe(torch, device: str = "cuda", reduced: bool = False,
     return results
 
 
+def search_conv_launches(specs, forwards: int) -> int:
+    """Conv kernel launches of a trained candidate: BN re-estimation (the
+    pre-BN product, then the layer: two a conv; every conv of the space has
+    BN) and one a conv for each of ``forwards`` no-grad forwards (its
+    evaluation chunks; for the winner also its accumulator profile and its
+    served batches)."""
+    return sum(s.kind == "dwsep_conv" for s in specs) * (2 + forwards)
+
+
+def phase_search(torch, data, device=None, card: str = "",
+                 serve_steps: int = 300, serve_batch: int = 64,
+                 bucket_steps: int = BUCKET_STEPS, profile_steps: int = 2,
+                 **overrides) -> dict:
+    """HALF's loop at the search space's full width: the search, then
+    serve_winner, then one bucket trained batched and scalar, with phase
+    13's gates; ``card`` (card_line()) is printed beside its rates.
+    ``device`` None is the card, as for a user; ``device`` and
+    ``overrides`` (NASConfig fields over SEARCH_CFG) let the flow be
+    rehearsed on the CPU at toy size."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    import repro_torch.core.evolution as evolution_mod
+    import repro_torch.hwlib.layers as layers_mod
+    from repro_torch.core import trainer
+    from repro_torch.core.evolution import EvolutionarySearch, NASConfig
+    from repro_torch.core.genome import Genome, describe
+    from repro_torch.core.objectives import expensive_objectives
+    from repro_torch.core.trainer_batch import (fit_bucket, shape_signature,
+                                                train_candidates_batched)
+    from repro_torch.kernels.conv1d import dwsep_conv1d, dwsep_conv1d_ref
+    from repro_torch.serve import serve_winner
+
+    tr, va = data
+    x_va, y_va = va
+    n_val, chunks = len(y_va), -(-len(y_va) // 256)
+    cfg = NASConfig(**{**SEARCH_CFG, **overrides})
+    lines = []
+
+    def search_log(msg):
+        lines.append(str(msg))
+        log(f"[search] {msg}")
+    search = EvolutionarySearch(cfg, tr, va, log=search_log, device=device)
+    dev, space = search.device, search.space
+    log(f"[search] {cfg.generations} generations of {cfg.children_per_gen} "
+        f"children, {cfg.n_accept} accepted, {cfg.init_population} initial, "
+        f"{cfg.train_steps} steps at batch {cfg.train_batch}, "
+        f"{cfg.n_workers} scheduler threads, pipeline {cfg.pipeline}, goal "
+        f"{cfg.goal}, on {dev}; {len(tr[1])} train / {n_val} val records of "
+        f"{tuple(tr[0].shape[1:])}; cut from the paper's run: {SEARCH_CUTS}")
+
+    # every training call of the search, recorded before it runs (a retried
+    # bucket would show up twice), with its host wall time
+    attempted, specs_of, calls = [], {}, []
+    lock = threading.Lock()
+
+    def recording(genomes, *args, **kwargs):
+        with lock:
+            for g in genomes:
+                attempted.append(g.phenotype_hash(space))
+                specs_of[attempted[-1]] = g.phenotype(space)
+        t0 = time.perf_counter()
+        out = train_candidates_batched(genomes, *args, **kwargs)
+        with lock:
+            calls.append((len(genomes), time.perf_counter() - t0))
+        return out
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = swapped([(evolution_mod, "train_candidates_batched", recording)],
+                    search.run)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    hist = state.history
+    host = {k: sum(r["timings"][k] for r in hist)
+            for k in ("children", "cheap_score", "select")}
+    host_s = sum(host.values())
+    train_s = search_s - host_s
+    n_trained = len(attempted)
+    rates = dict(search_s=search_s, host_s=host_s, train_s=train_s,
+                 candidates=n_trained,
+                 candidates_per_s=n_trained / train_s)
+    log(f"[search] {n_trained} candidates trained in {len(calls)} bucket "
+        f"calls (sizes {sorted((n for n, _ in calls), reverse=True)}); wall "
+        f"{search_s:.2f}s = host {host_s:.3f}s (mutate "
+        f"{host['children']:.3f}, score {host['cheap_score']:.3f}, select "
+        f"{host['select']:.3f}) + training {train_s:.2f}s (initial "
+        f"population {search_s - sum(r['elapsed_s'] for r in hist):.2f}s);"
+        f" {rates['candidates_per_s']:.3f} candidates trained/s; "
+        f"generations: " + "; ".join(
+            f"{r['generation']}: trained {r['trained']}, population "
+            f"{r['population']}, front {r['front_size']}, feasible "
+            f"{r['feasible']}" for r in hist))
+    failed = [ln for ln in lines if "failed" in ln]
+    if failed:
+        raise RuntimeError(f"[search] training failed: {failed}")
+    if n_trained != len(set(attempted)) \
+            or set(attempted) != set(state.evaluated_hashes):
+        raise RuntimeError(
+            f"[search] {n_trained} trainings of {len(set(attempted))} "
+            f"phenotypes, {len(state.evaluated_hashes)} in the dormant-gene "
+            f"cache: a phenotype was trained twice or left out")
+    if len(state.pop) > cfg.population_cap or len(hist) != cfg.generations \
+            or not all(r["front_size"] >= 1 for r in hist):
+        raise RuntimeError(f"[search] population {len(state.pop)} (cap "
+                           f"{cfg.population_cap}), history {hist}")
+
+    # the winner, trained, compiled and served behind two replicas
+    t0 = time.perf_counter()
+    served = serve_winner(search, state, data_train=tr, data_val=va,
+                          train_steps=serve_steps,
+                          train_batch=cfg.train_batch, seed=SEED,
+                          replicas=2, log=search_log, device=device)
+    torch.cuda.synchronize()
+    winner_s = time.perf_counter() - t0
+    winner = served.winner
+    t0 = time.perf_counter()
+    classes = [served.classify(x_va[i:i + serve_batch])
+               for i in range(0, n_val, serve_batch)]
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()["dwsep_conv1d"]
+    n_batches = len(classes)
+    classes = np.concatenate(classes)
+    det, fa = trainer.detection_rates(classes, y_va)
+    meta, wspecs = winner.train_meta, winner.genome.phenotype(space)
+    rates["served_records_per_s"] = n_val / serve_s
+    want = sum(search_conv_launches(specs_of[h], chunks) for h in attempted) \
+        + search_conv_launches(wspecs, chunks + 1 + n_batches)
+    log(f"[search] winner ({cfg.goal}): "
+        f"{' '.join(s.short() for s in wspecs)} "
+        f"{winner.genome.quant(space).short()}, input "
+        f"{winner.input_length}; serve_winner: {serve_steps} steps, trained "
+        f"and compiled "
+        f"in {winner_s:.2f}s; {n_val} records in {n_batches} batches of "
+        f"{serve_batch} behind 2 replicas in {serve_s * 1e3:.2f} ms = "
+        f"{rates['served_records_per_s']:.1f} served records/s (host copies"
+        f" included); served det {det:.4f} fa {fa:.4f}, validation det "
+        f"{meta['detection_rate']:.4f} fa {meta['false_alarm_rate']:.4f}; "
+        f"dwsep_conv1d launches {launches} (want {want}: conv layers x "
+        f"no-grad forwards of the {n_trained} trained candidates and the "
+        f"winner)")
+    if launches != want:
+        raise RuntimeError(f"dwsep_conv1d launched {launches} times in the "
+                           f"search and serve_winner, want {want}")
+    if len(classes) != n_val or served.stats["batches"] != n_batches:
+        raise RuntimeError(f"[search] {len(classes)} classes for {n_val} "
+                           f"records in {served.stats['batches']} batches")
+    if (det, fa) != (meta["detection_rate"], meta["false_alarm_rate"]):
+        raise RuntimeError(f"[search] served det/fa {det}/{fa}, the "
+                           f"winner's validation {meta}")
+
+    # one bucket at a time, trained batched and by scalar calls on the
+    # card, BUCKET_STEPS steps each: the winner's phenotype at four quant
+    # settings with one scalar run on records one f32 ulp up (reported:
+    # see BUCKET_QUANTS; its batched call is the process's first vmapped
+    # step and pays a one-time set-up), then phase 9's full-width phenotype
+    # likewise (gated and timed)
+    def bucket_of(genome):
+        return [dataclasses.replace(genome, w_bits_gene=w, a_bits_gene=a,
+                                    i_bits_gene=i)
+                for w, a, i in BUCKET_QUANTS]
+
+    def rates_of(results):
+        return [(r.detection_rate, r.false_alarm_rate) for r in results]
+
+    def batched_and_scalar(bucket):
+        t0 = time.perf_counter()
+        batched = train_candidates_batched(bucket, tr, va, **bucket_kw)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scalar = [trainer.train_candidate(g, tr, va, **bucket_kw)
+                  for g in bucket]
+        torch.cuda.synchronize()
+        return batched, scalar, batched_s, time.perf_counter() - t0
+
+    def val_loss_gap(a, b):
+        return max(abs(p.val_loss - q.val_loss) for p, q in zip(a, b))
+
+    bucket_kw = dict(space=space, steps=bucket_steps,
+                     batch_size=cfg.train_batch, lr=cfg.lr, seed=SEED,
+                     device=dev)
+    w_bucket = bucket_of(winner.genome)
+    w_batched, w_scalar, first_s, _ = batched_and_scalar(w_bucket)
+    ulp = (np.nextafter(tr[0], np.float32(np.inf)), tr[1])
+    w_ulp = trainer.train_candidate(w_bucket[0], ulp, va, **bucket_kw)
+    rates["winner_bucket_first_batched_s"] = first_s
+    log(f"[search] the winner's phenotype at {len(w_bucket)} quant settings"
+        f" ({', '.join(g.quant(space).short() for g in w_bucket)}), "
+        f"{bucket_steps} steps each (reported; the batched call, the "
+        f"process's first vmapped step, took {first_s:.2f}s): det/fa "
+        f"batched {rates_of(w_batched)}, scalar {rates_of(w_scalar)}; "
+        f"largest |val_loss difference| "
+        f"{val_loss_gap(w_batched, w_scalar):.3g}; its "
+        f"{w_bucket[0].quant(space).short()} trained scalar on records one "
+        f"f32 ulp up: det/fa {rates_of([w_ulp])[0]}, |val_loss difference| "
+        f"{abs(w_ulp.val_loss - w_scalar[0].val_loss):.3g} from the "
+        f"scalar run")
+
+    bucket = bucket_of(Genome(**ECG_GENES))
+    batched, scalar, batched_s, scalar_s = batched_and_scalar(bucket)
+    steps = len(bucket) * bucket_steps
+    rates.update(batched_steps_per_s=steps / batched_s,
+                 scalar_steps_per_s=steps / scalar_s)
+    log(f"[search] one bucket of phase 9's phenotype at {len(bucket)} quant "
+        f"settings, {bucket_steps} steps each: batched {batched_s:.2f}s = "
+        f"{rates['batched_steps_per_s']:.1f} steps/s, scalar {scalar_s:.2f}s"
+        f" = {rates['scalar_steps_per_s']:.1f} steps/s (each with BN "
+        f"re-estimation and evaluation); det/fa batched {rates_of(batched)}, "
+        f"scalar {rates_of(scalar)}; largest |val_loss difference| "
+        f"{val_loss_gap(batched, scalar):.3g} (tol {BATCH_VAL_LOSS_TOL})")
+    for b, s in zip(batched, scalar):
+        if not np.array_equal(expensive_objectives(b),
+                              expensive_objectives(s)) \
+                or not abs(b.val_loss - s.val_loss) < BATCH_VAL_LOSS_TOL:
+            raise RuntimeError(f"[search] batched {b} differs from scalar "
+                               f"{s}")
+
+    # the bucket's training steps on the device (torch.profiler)
+    want_len = bucket[0].input_length(space)
+    x_tr = trainer.to_device(trainer.prep_inputs(tr[0], want_len), dev)
+    y_tr = torch.as_tensor(tr[1], device=dev).long()
+    sig = shape_signature(bucket[0], space)
+
+    def fit(_):
+        return fit_bucket(bucket, [SEED] * len(bucket), sig, space, x_tr,
+                          y_tr, profile_steps, cfg.train_batch, cfg.lr, dev)
+    fit(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(None)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    rates["bucket_step_ms"] = fit_ms / profile_steps
+    prof = profile_forward(torch, "[search-profile]", fit, None, fit_ms,
+                           what=f"the bucket's {profile_steps} batched "
+                                f"steps")
+    rates["bucket_idle_share"] = prof.get("idle_share")
+
+    # one trained candidate (the bucket's w8a16i16): its eval logits with
+    # the conv kernel and with the plain conv swapped in, and where its
+    # evaluation's device time goes
+    quant, specs = bucket[0].quant(space), bucket[0].phenotype(space)
+    params, _ = trainer.fit_candidate(
+        specs, quant, trainer.prep_inputs(tr[0], want_len), tr[1],
+        steps=bucket_steps, batch_size=cfg.train_batch, lr=cfg.lr,
+        seed=SEED, device=dev)
+    xv = trainer.prep_inputs(x_va, want_len)
+
+    @torch.no_grad()
+    def eval_logits():
+        return torch.cat([trainer.forward(
+            params, specs, trainer.to_device(xv[i:i + 256], dev), quant)
+            for i in range(0, n_val, 256)]).cpu().numpy()
+    before = dwsep_conv1d.launches
+    logits_k = eval_logits()
+    kernel_launches = dwsep_conv1d.launches - before
+    logits_p = swapped([(layers_mod, "dwsep_conv1d", dwsep_conv1d_ref)],
+                       eval_logits)
+    diff = np.abs(logits_k - logits_p)
+    err = float(diff.max())
+    # allclose at rtol = atol = tol: |err| <= tol + tol * |plain|
+    share = float((diff / (ECG_LOGIT_TOL * (1 + np.abs(logits_p)))).max())
+    log(f"[search] a trained candidate's eval logits ({n_val} records, "
+        f"{quant.short()}), conv kernel ({kernel_launches} launches) vs "
+        f"plain: max_abs_err={err:.3g}, {share:.3g} of the tolerance (rtol "
+        f"= atol = {ECG_LOGIT_TOL}), |logits| max "
+        f"{float(np.abs(logits_p).max()):.3g}")
+    if not kernel_launches or not np.allclose(
+            logits_k, logits_p, rtol=ECG_LOGIT_TOL, atol=ECG_LOGIT_TOL) \
+            or not np.array_equal(logits_k.argmax(1), logits_p.argmax(1)):
+        raise RuntimeError(f"[search] eval logits, kernel vs plain conv: "
+                           f"max err {err}, or the classes differ, or no "
+                           f"kernel launched ({kernel_launches})")
+
+    def evaluation(_):
+        return trainer.evaluate(params, specs, quant, xv, y_va, device=dev)
+    evaluation(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluation(None)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_forward(torch, "[search-profile]", evaluation, None,
+                           eval_ms, what=f"one evaluation ({n_val} records)")
+    rates.update(eval_ms=eval_ms, eval_conv_share=prof.get("conv_share"),
+                 eval_conv_ms=prof.get("conv_ms"))
+    log(f"[search] rates on {card or dev}: {rates}")
+    return dict(launches=launches, logit_err=err, rates=rates,
+                winner=describe(winner.genome, space), state=state)
+
+
 def gmm_entry(moe) -> dict:
     """The ``kernels`` line's entry for the grouped matmul, from phase 12:
     launches of the dense engine's run; times per launch over one decode
@@ -2650,6 +2999,8 @@ def main() -> int:
     mamba = phase_mamba(torch)
     torch.cuda.empty_cache()
     moe = phase_moe(torch)
+    torch.cuda.empty_cache()
+    search = phase_search(torch, ecg["data"], card=card)
     zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
@@ -2686,6 +3037,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/dwsep_conv1d.cu",
         "replaces": "src/repro/kernels/conv1d/kernel.py:58",
         "launches": conv_launches,
+        "search_launches": search["launches"],
         "max_abs_err": conv_path["err"],
         "ms": conv_path["ms"],
         "plain_ms": conv_path["plain_ms"],
@@ -2699,7 +3051,8 @@ def main() -> int:
                    "times per launch, averaged over one deployment "
                    "forward's six convs at batch 256; max_abs_err also "
                    "over one BN re-estimation's and one evaluation's "
-                   "launches without ReLU",
+                   "launches without ReLU; launches from phase 9's run, "
+                   "search_launches from phase 13's search and winner",
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2736,12 +3089,12 @@ def main() -> int:
                    "run, times per launch averaged over one prefill's 13 "
                    "shared-block applications (hd 112)",
     }, gmm_entry(moe)]
-    log(f"[done] phases 3-12 in {time.perf_counter() - t_total:.1f}s; ecg "
+    log(f"[done] phases 3-13 in {time.perf_counter() - t_total:.1f}s; ecg "
         f"rates {ecg['rates']}; zamba2-7b tok/s dense "
         f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
         f" mamba2-780m tok/s {mamba['tok_s']:.1f}; dbrx-132b (8 layers) "
         f"tok/s dense {moe['dense']['tok_s']:.1f}, paged "
-        f"{moe['paged']['tok_s']:.1f}")
+        f"{moe['paged']['tok_s']:.1f}; search {search['rates']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -78,8 +79,15 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The loaded library of ``csrc/<name>.cu``, built first if missing.
+    Threads that first launch a kernel at once (the search's scheduler
+    workers) build it once: the lock serialises them, and a build names its
+    temporary file by process only."""
+    with _LOAD_LOCK:
+        build([name])
+        return ctypes.CDLL(str(library_path(name)))

@@ -1,8 +1,9 @@
 """Deterministic fault-injection harness (DESIGN.md §13).
 
-A copy of ``repro/core/faults.py`` (numpy and threading only).  Of its
-inject points the port has ``serve.decode`` (the engine), ``serve.replica``
-and ``router.dispatch`` (the router) so far.
+A copy of ``repro/core/faults.py`` (numpy and threading only).  The port
+has every inject point of the table below: the scheduler, the search
+loop and its checkpoints (``core/scheduler.py``, ``core/evolution.py``),
+the engine and the router.
 
 A :class:`FaultPlan` *schedules* faults; components *expose inject points*
 (explicit hooks — never monkeypatching) and consult the plan at each one.

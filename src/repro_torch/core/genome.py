@@ -1,8 +1,7 @@
 """Genetic encoding with dormant genes (paper §III-A, via Suganuma et al. '17).
 
 A copy of ``repro/core/genome.py`` (numpy only), imports repointed to the
-port.  Its batch operators serve the search loop (``core/evolution.py``),
-still to port.
+port.  Its batch operators serve the search loop (``core/evolution.py``).
 
 Cartesian-genetic-programming-style linear encoding: the genome holds
 ``max_depth`` node slots; each node has a *function gene* (index into the op

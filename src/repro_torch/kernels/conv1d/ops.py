@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._launches import count_launch
 from repro_torch.kernels.conv1d.ref import dwsep_conv1d_ref
 
 KERNEL_SIZES = (1, 3, 5, 7)
@@ -84,7 +85,7 @@ def dwsep_conv1d(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor,
     if err:
         raise RuntimeError(f"dwsep_conv1d kernel launch failed: CUDA error "
                            f"{err}")
-    dwsep_conv1d.launches += 1
+    count_launch(dwsep_conv1d)
     return out
 
 

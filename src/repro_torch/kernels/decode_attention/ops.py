@@ -18,6 +18,7 @@ import functools
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._launches import count_launch
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -106,7 +107,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 
@@ -151,7 +152,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 

@@ -16,6 +16,7 @@ import functools
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._launches import count_launch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 112, 128)
@@ -84,8 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_path[PATHS[path.value]] += 1
+    count_launch(flash_attention, PATHS[path.value])
     return out
 
 

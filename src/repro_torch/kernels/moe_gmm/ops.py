@@ -15,6 +15,7 @@ import functools
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._launches import count_launch
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,8 +71,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                      _DTYPE_CODE[x.dtype], stream, ctypes.byref(path))
     if err:
         raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
-    gmm.launches += 1
-    gmm.launches_by_path[PATHS[path.value]] += 1
+    count_launch(gmm, PATHS[path.value])
     return out
 
 

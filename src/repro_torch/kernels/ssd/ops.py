@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._launches import count_launch
 from repro_torch.kernels.ssd.ref import ssd_chunked
 
 STATE_SIZES = (8, 16, 32, 64, 128)   # N the kernel is built for
@@ -106,8 +107,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
                      _DTYPE_CODE[x.dtype], stream, ctypes.byref(path))
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    ssd_scan.launches += 1
-    ssd_scan.launches_by_path[PATHS[path.value]] += 1
+    count_launch(ssd_scan, PATHS[path.value])
     return y, state
 
 

@@ -17,7 +17,9 @@ one engine or replicas behind a router.
 * :func:`~repro_torch.serve.winner.compile_winner` — genome front-end:
   train -> compile -> :class:`ServableWinner`;
   :func:`~repro_torch.serve.winner.replicate_winner` adds replicated
-  dispatch (:class:`ReplicatedWinner`).
+  dispatch (:class:`ReplicatedWinner`);
+  :func:`~repro_torch.serve.winner.serve_winner` picks the genome from a
+  search for a deployment goal first.
 
 ``loadgen``, ``paged`` and ``buckets`` are copies of the reference's numpy
 modules.
@@ -43,6 +45,7 @@ from repro_torch.serve.winner import (
     ServableWinner,
     compile_winner,
     replicate_winner,
+    serve_winner,
 )
 
 __all__ = [
@@ -65,4 +68,5 @@ __all__ = [
     "onoff_workload",
     "poisson_workload",
     "replicate_winner",
+    "serve_winner",
 ]

@@ -5,9 +5,9 @@ Counterpart of ``repro/serve/winner.py``: train a genome, compile the
 deployment artifact (BN-folded + quantized params, unrolling plan,
 accumulator formats — core/compile_model.py), and serve batched
 classification requests through one deployment-mode forward, whose convs
-run through the conv kernel on the card.  ``serve_winner``, which picks
-the genome from a search, waits for the search loop
-(``core/evolution.py``).
+run through the conv kernel on the card.  :func:`serve_winner` closes
+HALF's loop: it picks the genome from a search (``core/evolution.py``)
+for a deployment goal, then trains, compiles and serves it.
 
 The ECG winners are single-forward classifiers, so "serving" is the
 prefill-only degenerate case of the engine: batches padded to a power of
@@ -27,14 +27,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.compile_model import CompiledModel, compile_candidate
 from repro_torch.core.faults import FaultPlan, InjectedCrash
-from repro_torch.core.genome import Genome
+from repro_torch.core.genome import Genome, describe
+from repro_torch.core.objective_schema import DesignGoal
 from repro_torch.core.search_space import DEFAULT_SPACE, SearchSpace
 from repro_torch.core.trainer import (evaluate, fit_candidate, forward,
                                       prep_inputs, to_device)
@@ -254,3 +256,53 @@ def compile_winner(
         _predict=functools.partial(_deploy_forward, compiled.params, specs),
         device=dev,
     )
+
+
+def serve_winner(
+    search,                         # EvolutionarySearch
+    state,                          # NASState
+    goal: Union[None, str, DesignGoal] = None,
+    *,
+    data_train: Tuple[np.ndarray, np.ndarray],
+    data_val: Tuple[np.ndarray, np.ndarray],
+    train_steps: int = 300,
+    train_batch: int = 64,
+    seed: int = 0,
+    replicas: int = 1,
+    devices: Optional[Sequence[DeviceLike]] = None,
+    log=print,
+    device: DeviceLike = None,
+) -> Union[ServableWinner, ReplicatedWinner]:
+    """search -> implement -> deploy: pick the goal's best feasible
+    candidate, train and compile it on ``device`` (default: the card), and
+    return a serving handle.
+
+    ``replicas > 1`` routes the winner through replicated dispatch
+    (:func:`replicate_winner`): device-affine copies, round-robin +
+    failover, fail-streak quarantine.  The reference's ``paged`` flag,
+    which records a KV-cache preference that nothing reads (the winner's
+    forward has no cache), is left out.
+
+    Raises ``LookupError`` when no candidate meets the goal's constraints
+    (serve nothing rather than an infeasible model)."""
+    cand = search.select_for_goal(state, goal)
+    if cand is None:
+        raise LookupError(f"no feasible candidate for goal {goal!r} — "
+                          f"run more generations")
+    goal_name = goal if isinstance(goal, (str, type(None))) else goal.name
+    log(f"[serve] winner for goal={goal_name}: "
+        f"{describe(cand.genome, search.space)}")
+    t0 = time.time()
+    winner = compile_winner(cand.genome, data_train, data_val,
+                            space=search.space, goal=goal_name,
+                            train_steps=train_steps,
+                            train_batch=train_batch, seed=seed,
+                            device=device)
+    log(f"[serve] trained+compiled in {time.time()-t0:.1f}s "
+        f"(det={winner.train_meta['detection_rate']:.3f} "
+        f"fa={winner.train_meta['false_alarm_rate']:.3f})")
+    if replicas > 1:
+        log(f"[serve] replicating winner onto {replicas} replicas")
+        return replicate_winner(winner, replicas, devices=devices,
+                                space=search.space)
+    return winner

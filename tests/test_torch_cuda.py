@@ -915,3 +915,49 @@ def test_moe_block_runs_without_a_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     again, _ = moe_block(p, x, cfg)
     assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_search_and_serve_winner_on_the_card(cuda_device, monkeypatch):
+    """HALF's loop with the default device (the card), at toy size: the
+    search's two scheduler threads train and evaluate every candidate
+    through the conv kernel, serve_winner answers from two replicas, and a
+    narrow bucket of four quant settings trains batched as it does scalar
+    (five steps: rounding has no room to grow)."""
+    import dataclasses
+
+    from repro_torch.core import EvolutionarySearch, NASConfig
+    from repro_torch.core.genome import Genome
+    from repro_torch.core.objectives import expensive_objectives
+    from repro_torch.core.trainer import train_candidate
+    from repro_torch.core.trainer_batch import train_candidates_batched
+    from repro_torch.data.ecg import make_ecg_dataset, train_val_split
+    from repro_torch.serve import serve_winner
+
+    tr, va = train_val_split(*make_ecg_dataset(0, n_samples=48,
+                                               decimation=16))
+    monkeypatch.setattr(dwsep_conv1d, "launches", 0)
+    cfg = NASConfig(generations=2, children_per_gen=4, n_accept=2,
+                    init_population=3, train_steps=5, train_batch=8,
+                    n_workers=2, pipeline="host_overlap", det_min=0.0,
+                    fa_max=1.0)
+    search = EvolutionarySearch(cfg, tr, va, log=lambda *_: None)
+    assert search.device.type == "cuda"
+    state = search.run()
+    assert state.pop.trained_mask.all() and dwsep_conv1d.launches > 0
+    winner = serve_winner(search, state, data_train=tr, data_val=va,
+                          train_steps=5, train_batch=8, replicas=2,
+                          log=lambda *_: None)
+    assert winner.classify(va[0]).shape == (len(va[0]),)
+    narrow = Genome(op_genes=(31, 61, 39, 23) + (0,) * 11,
+                    conn_genes=tuple(range(15)), out_gene=4, w_bits_gene=0,
+                    a_bits_gene=0, i_bits_gene=1, dec_gene=1)
+    bucket = [dataclasses.replace(narrow, w_bits_gene=w, a_bits_gene=a,
+                                  i_bits_gene=i)
+              for w, a, i in ((1, 1, 1), (0, 1, 1), (1, 0, 1), (1, 1, 0))]
+    kw = dict(steps=5, batch_size=8, seed=0)
+    batched = train_candidates_batched(bucket, tr, va, **kw)
+    for g, b in zip(bucket, batched):
+        s = train_candidate(g, tr, va, **kw)
+        assert (expensive_objectives(b) == expensive_objectives(s)).all()
+        assert abs(b.val_loss - s.val_loss) < 5e-3
