@@ -153,7 +153,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    work and training, candidates trained a second, batched and scalar
    steps a second, the bucket's idle share and the conv's share of an
    evaluation (torch.profiler) are printed;
-14. the last lines are the card (nvidia-smi), a JSON line of every kernel
+14. training: (a) the grouped matmul under autograd at dbrx-132b's
+   prefill shape (bf16) and one f32 shape: its output has the Function's
+   grad_fn, its backward launches the kernel twice, and dX and dW equal
+   autograd through gmm_ref (phase 12's tolerances); the two launches are
+   timed beside their plain version, torch.bmm and their bound, each
+   apart, and the whole backward with its transposes; (b)
+   qwen2-0.5b at its published config (24 layers, vocab 151936, bf16,
+   remat "full", 2 microbatches, AdamW) through
+   repro_torch.launch.train.main, 30 steps at batch 8 x 512 with
+   checkpoints every 10, then again with a failure injected at step 15:
+   the first loss is near ln(vocab), the loss falls, the failed run
+   restores step 10 and replays to the clean run's losses (2e-3
+   relative); steps/s and tokens/s over steps 2-29 with their checkpoint
+   saves and over the whole run, the median step, peak memory, and one
+   step's device time split into forward, backward, remat recompute and
+   optimizer with its idle share (torch.profiler); (c) the eval step under
+   no_grad launches the flash kernel once a layer, each launch's output
+   equals flash_attention_ref on its own q, k and v (TOL), and the loss
+   equals the gradient-taking pass's within 1e-4; (d) dbrx-132b reduced
+   (remat "full", 2 microbatches, f32) trains 3 steps on the card: every
+   expert grad finite and nonzero, gmm launches = 3 sites x layers x
+   (forward + recompute + 2 backward) x microbatches x steps, step 1's
+   expert grads elementwise and its loss and grad norm equal the CPU's
+   from the same params (1e-4);
+15. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -317,6 +341,40 @@ DECODE_SHAPES = {**ATTN_SHAPES, "granite-34b": (48, 1, 128),
                  "mistral-large-123b": (96, 8, 128)}
 FLASH_SHAPES = {**ATTN_SHAPES, "dbrx-132b": (48, 8, 128)}
 FLASH_LENGTHS = (8, 40, 704, 2048)
+# Phase 14a: the grouped matmul's backward (dX^T = gmm(W, dY^T), dW =
+# gmm(X^T, dY)) at dbrx-132b's prefill shape (E, C, D, F) in bf16, and one
+# f32 shape; kernel vs autograd through gmm_ref at GMM_TOL / GMM_NORM_TOL
+GMM_BWD_CASES = [(16, 224, 6144, 10752, "bfloat16"),
+                 (16, 40, 1024, 1536, "float32")]
+# Phase 14b: qwen2-0.5b at its published config (24 layers, vocab 151936,
+# bf16, remat "full", 2 microbatches, AdamW) trained through the launcher
+# for 30 steps at batch 8 x 512 tokens, checkpoints every 10; the second
+# run fails at step 15, restores step 10 and replays.  The embedding's
+# backward sums rows with atomics, so the replay need not be bit for bit
+# on the card: its losses are held to the first run's within 2e-3
+# relative, and how far they moved is printed.
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_RUN = dict(steps=30, batch=8, seq=512, ckpt_every=10, fail_step=15)
+TRAIN_REPLAY_TOL = 2e-3
+# The first logged loss of a random init is near ln(vocab) (11.93 at
+# 151936): within 0.5 of it; the mean of the last five steps' losses at
+# least 0.5 below it.
+TRAIN_FIRST_LOSS_TOL = 0.5
+TRAIN_MIN_FALL = 0.5
+# Phase 14c: the eval step under no_grad runs the flash kernel once a
+# layer.  Each launch's output is held to flash_attention_ref on that
+# launch's own q, k and v (B 8, S 512, 14/2 heads of 64, bf16) at
+# TOL["bfloat16"]; the mean loss against the gradient-taking pass
+# (chunked_attention) at 1e-4 relative (seen: 1e-5 and below on the H100).
+EVAL_LOSS_TOL = 1e-4
+# Phase 14d: dbrx-132b reduced (3 layers, 8 experts of 64, top-2, f32) with
+# the published config's remat "full" and 2 microbatches, 3 steps on the
+# card; step 1 against the same step on the CPU from the same params, f32
+# sums in other orders: every expert leaf's gradient elementwise within
+# 1e-4 of that leaf's largest magnitude, the loss and grad norm within
+# 1e-4 relative.
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -2826,12 +2884,497 @@ def phase_search(torch, data, device=None, card: str = "",
                 winner=describe(winner.genome, space), state=state)
 
 
-def gmm_entry(moe) -> dict:
+def gmm_bwd_bound_ms(x, w) -> tuple:
+    """Least time for the backward's two products of one grouped matmul
+    (x: (E, C, D), w: (E, D, F)): dY, W and X read once for each product
+    that reads them, dX and dW written once; 4 E C D F flops."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    item = x.element_size()
+    nbytes = ((e * c * f + w.numel() + e * c * d)          # dX = dY W^T
+              + (x.numel() + e * c * f + w.numel())) * item  # dW = X^T dY
+    flops = 2 * gmm_flops(x, w)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bmm_backward_call(x, w, dy):
+    """PyTorch's own two products of the backward on the same inputs,
+    strided transposes as bmm takes them (timed, never used by the port)."""
+    import torch
+    return (torch.bmm(dy, w.transpose(1, 2)),
+            torch.bmm(x.transpose(1, 2), dy))
+
+
+def phase_gmm_backward(torch, device: str = "cuda", cases=GMM_BWD_CASES,
+                       timed: bool = True) -> dict:
+    """The grouped matmul under autograd: ``gmm``'s output has the
+    Function's grad_fn, its backward launches the kernel twice (dX, dW),
+    and both gradients equal autograd through gmm_ref on the same card
+    tensors, elementwise and normwise.  Then the two launches are timed
+    beside their plain version, torch.bmm and their bound.  Returns the
+    first (dbrx-132b) case's numbers."""
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.moe_gmm.ops import GroupedMatmul
+    first = None
+    for e, c, d, f, name in cases:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        x, w = gmm_inputs(torch, e, c, d, f, dtype, device, gen)
+        dy = torch.randn(e, c, f, generator=gen, device=device).to(dtype)
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = gmm(xg, wg)
+        if not type(out.grad_fn).__name__.startswith(GroupedMatmul.__name__):
+            raise RuntimeError(f"gmm's output has grad_fn {out.grad_fn}, "
+                               f"not GroupedMatmul's")
+        before = gmm.launches
+        out.backward(dy)
+        torch.cuda.synchronize()
+        if x.is_cuda and gmm.launches != before + 2:
+            raise RuntimeError(f"gmm's backward launched the kernel "
+                               f"{gmm.launches - before} times, want 2")
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        gmm_ref(xr, wr).backward(dy)
+        err, rel, worst = 0.0, 0.0, 0.0
+        for what, got, want in (("dX", xg.grad, xr.grad),
+                                ("dW", wg.grad, wr.grad)):
+            diff = (got.float() - want.float()).abs()
+            tol = GMM_TOL[name]
+            r = rel_err(got, want)
+            ratio = float((diff / (tol + tol * want.float().abs())).max())
+            if not (torch.isfinite(got).all() and r <= GMM_NORM_TOL[name]
+                    and ratio <= 1.0):
+                raise RuntimeError(
+                    f"gmm backward {what} E={e} C={c} D={d} F={f} {name}: "
+                    f"kernel disagrees with autograd through gmm_ref: "
+                    f"normwise {r:.3g} (tol {GMM_NORM_TOL[name]}), max err "
+                    f"{float(diff.max())}, {ratio:.3g} of the elementwise "
+                    f"tolerance")
+            err, rel = max(err, float(diff.max())), max(rel, r)
+            worst = max(worst, ratio)
+            del diff
+        r = dict(err=err, rel=rel, worst=worst)
+        del xg, wg, xr, wr, out
+        torch.cuda.empty_cache()
+        line = (f"[train] gmm backward E={e} C={c} D={d} F={f} {name}: dX and "
+                f"dW max_abs_err={err:.3g}, {worst:.3g} of the tolerance "
+                f"(rtol = atol = {GMM_TOL[name]}); normwise {rel:.3g} (tol "
+                f"{GMM_NORM_TOL[name]})")
+        if timed:
+            dy_t, x_t = (t.transpose(1, 2).contiguous() for t in (dy, x))
+
+            def kernel(w_, dy_t_, x_t_, dy_):   # dX^T = W dY^T, dW = X^T dY
+                return gmm(w_, dy_t_), gmm(x_t_, dy_)
+
+            def plain(w_, dy_t_, x_t_, dy_):
+                return gmm_ref(w_, dy_t_), gmm_ref(x_t_, dy_)
+
+            def backward(x_, w_, dy_):         # GroupedMatmul.backward
+                class Ctx:
+                    saved_tensors = (x_, w_)
+                    needs_input_grad = (True, True)
+                return GroupedMatmul.backward(Ctx, dy_)
+
+            sets = [(w, dy_t, x_t, dy)]
+            with torch.no_grad():
+                r.update(ms=time_ms(kernel, sets),
+                         plain_ms=time_ms(plain, sets, reps=3),
+                         library_ms=time_ms(bmm_backward_call, [(x, w, dy)]),
+                         function_ms=time_ms(backward, [(x, w, dy)]),
+                         dx_ms=time_ms(gmm, [(w, dy_t)]),
+                         dw_ms=time_ms(gmm, [(x_t, dy)]),
+                         dx_bmm_ms=time_ms(lambda a, b: torch.bmm(
+                             a, b.transpose(1, 2)), [(dy, w)]),
+                         dw_bmm_ms=time_ms(lambda a, b: torch.bmm(
+                             a.transpose(1, 2), b), [(x, dy)]))
+            r["bound_ms"], r["bound_by"] = gmm_bwd_bound_ms(x, w)
+            line += (f"; the two launches ms={r['ms']:.4f} plain_ms="
+                     f"{r['plain_ms']:.4f} bmm_ms={r['library_ms']:.4f} "
+                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}), "
+                     + ratios(r["ms"], bmm=r["library_ms"],
+                              bound=r["bound_ms"]) +
+                     f"; apart, dX^T = W dY^T {r['dx_ms']:.4f} (bmm "
+                     f"{r['dx_bmm_ms']:.4f}) and dW = X^T dY "
+                     f"{r['dw_ms']:.4f} (bmm {r['dw_bmm_ms']:.4f}); the "
+                     f"Function's whole backward (the launches and the "
+                     f"transposes of dY, X and dX) {r['function_ms']:.4f} "
+                     f"ms")
+            del dy_t, x_t
+        log(line)
+        first = first or r
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return first
+
+
+def device_busy(torch, fn):
+    """(fn's result, device busy ms, kernels, wall ms) of one call under
+    torch.profiler (CUPTI); busy is None where the profiler saw no device
+    kernel (the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 \
+        if kernels else None
+    return out, busy, len(kernels), wall_ms
+
+
+def profile_train_step(torch, bundle, train_step, state, batch,
+                       step_ms: float) -> dict:
+    """Where one training step's device time goes (torch.profiler): the
+    whole step, then its parts apart: the forward of every microbatch
+    (loss_fn with a gradient taken, no backward), the gradients with
+    cfg.remat and with remat "none" (backward = the latter less the
+    forward; remat's recompute = the difference of the two), and the
+    optimizer (clip, AdamW, the in-place update).  The idle share and the
+    host's share are taken against ``step_ms``, the unprofiled step.
+    Updates ``state``'s params in place; returns the numbers (empty where
+    the profiler saw no device kernel)."""
+    import dataclasses
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.step import (
+        loss_fn,
+        make_train_step,
+        requiring_grad,
+    )
+    cfg = bundle.cfg
+    m = max(cfg.microbatches, 1)
+
+    def forward():
+        for i in range(m):
+            mb = {k: v.chunk(m)[i] for k, v in batch.items()}
+            with requiring_grad(state.params), torch.enable_grad():
+                loss_fn(state.params, mb, bundle)
+
+    plain_step, _ = make_train_step(
+        build_model(dataclasses.replace(cfg, remat="none")))
+    _, step_busy, step_kernels, step_wall = device_busy(
+        torch, lambda: train_step(state, batch))
+    _, fwd, fwd_k, _ = device_busy(torch, forward)
+    (met, grads), full, full_k, _ = device_busy(
+        torch, lambda: train_step.grads(state.params, batch))
+    _, none, none_k, _ = device_busy(
+        torch, lambda: plain_step.grads(state.params, batch))
+    _, opt, opt_k, _ = device_busy(
+        torch, lambda: train_step.update(state, grads, met))
+    del grads
+    if step_busy is None:
+        log("[train] the profiler recorded no device kernels: a training "
+            "step's split and idle share not measured")
+        return {}
+    out = dict(step_busy_ms=step_busy, step_kernels=step_kernels,
+               step_ms=step_ms, idle_share=1 - step_busy / step_ms,
+               host_ms=step_ms - step_busy, forward_ms=fwd,
+               backward_ms=none - fwd, remat_ms=full - none,
+               optimizer_ms=opt, kernels=dict(forward=fwd_k, grads=full_k,
+                                              grads_no_remat=none_k,
+                                              optimizer=opt_k))
+    log(f"[train] one step: device busy {step_busy:.3f} ms over "
+        f"{step_kernels} kernels (profiled wall {step_wall:.1f} ms); "
+        f"unprofiled step {step_ms:.1f} ms -> device idle share "
+        f"{out['idle_share']:.3f}, host beyond the device "
+        f"{out['host_ms']:.1f} ms. Parts, device ms: forward {fwd:.3f} "
+        f"({fwd_k} kernels), backward {none - fwd:.3f}, remat recompute "
+        f"{full - none:.3f} (grads {full:.3f} with remat over {full_k} "
+        f"kernels, {none:.3f} without over {none_k}), optimizer {opt:.3f} "
+        f"({opt_k} kernels)")
+    return out
+
+
+def phase_train(torch, device: str = "cuda", arch: str = TRAIN_ARCH,
+                reduced: bool = False, run=None, ckpt_root=None,
+                min_fall: float = TRAIN_MIN_FALL) -> dict:
+    """LM training through the port's launcher (repro_torch.launch.train):
+    a clean run and a run that fails at ``fail_step`` and must restore the
+    latest checkpoint and replay to the clean run's losses; then the eval
+    step (no_grad: the flash kernel once a layer) against the gradient-
+    taking pass, and one step profiled.  Checkpoints go under build/ and
+    are removed."""
+    import shutil
+
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm import LMDataConfig, make_batch
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.step import (
+        loss_fn,
+        make_eval_step,
+        make_train_step,
+        requiring_grad,
+    )
+    run = dict(TRAIN_RUN, **(run or {}))
+    steps, fail_step = run["steps"], run["fail_step"]
+    root = Path(ckpt_root or ROOT / "build" / "chip_smoke_train")
+    argv = ["--arch", arch, "--reduced" if reduced else "--no-reduced",
+            "--steps", str(steps), "--batch", str(run["batch"]), "--seq",
+            str(run["seq"]), "--ckpt-every", str(run["ckpt_every"]),
+            "--log-every", "1", "--device", device]
+    lines, stamps = [], []
+
+    def logged(msg):
+        # every restart line, and steps 0, 1 and every tenth; the wall
+        # time at which each step's line came, for the rates
+        lines.append(msg)
+        parts = msg.split()
+        step_line = parts[1:2] == ["step"] and parts[2].isdigit()
+        if step_line:
+            stamps.append((int(parts[2]), time.perf_counter()))
+        if not (step_line and int(parts[2]) > 1 and int(parts[2]) % 10):
+            log(f"[train] {msg}")
+
+    fired = []
+
+    def inject(step):
+        if step == fail_step and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected node failure at step {step}")
+
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        if device.startswith("cuda"):
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        clean = launch_train.main(argv + ["--ckpt-dir", str(root / "clean")],
+                                  log=logged)
+        clean_s = time.perf_counter() - t0
+        at = dict(stamps)
+        peak = peak_gb(torch, device)
+        counts = read_counts()
+        shutil.rmtree(root / "clean")
+        t0 = time.perf_counter()
+        faulty = launch_train.main(argv + ["--ckpt-dir",
+                                           str(root / "faulty")],
+                                   fail_injector=inject, log=logged)
+        faulty_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    if any(counts.values()):
+        raise RuntimeError(f"training launched kernels {counts}: every "
+                           f"attention takes a gradient (chunked_attention)")
+    first, losses = clean["loss_at"][0], clean["loss_at"]
+    want_first = math.log(cfg.vocab_size)
+    tail = [losses[s] for s in range(steps - 5, steps)]
+    if not (abs(first - want_first) <= TRAIN_FIRST_LOSS_TOL
+            and sum(tail) / len(tail) <= first - min_fall
+            and all(math.isfinite(v) for v in losses.values())):
+        raise RuntimeError(f"training loss: first {first:.4f} (want within "
+                           f"{TRAIN_FIRST_LOSS_TOL} of ln(vocab) = "
+                           f"{want_first:.4f}), last five {tail} (want their "
+                           f"mean {min_fall} below the first)")
+    restored = (fail_step // run["ckpt_every"]) * run["ckpt_every"]
+    if faulty["restarts"] != 1 or f"[loop] restored step {restored}" \
+            not in lines or set(faulty["loss_at"]) != set(losses):
+        raise RuntimeError(f"the failed run did not restore step {restored} "
+                           f"and replay: restarts {faulty['restarts']}")
+    replay = max(abs(faulty["loss_at"][s] - losses[s]) / abs(losses[s])
+                 for s in losses)
+    n_equal = sum(faulty["loss_at"][s] == losses[s] for s in losses)
+    if replay > TRAIN_REPLAY_TOL:
+        raise RuntimeError(f"the replayed run's losses differ from the clean "
+                           f"run's by {replay:.3g} relative (tol "
+                           f"{TRAIN_REPLAY_TOL})")
+    # The run's rate: steps 2 to the last on the wall clock, the checkpoint
+    # saves between them included; the whole run's, its init, first steps
+    # and last save included; the median step's, a per-step statistic
+    # (no save, no init) that also sets the profile's idle share.
+    window_s = at[steps - 1] - at[1]
+    times = sorted(clean["seconds_at"][s] for s in range(2, steps))
+    step_s = times[len(times) // 2]
+    tokens = run["batch"] * run["seq"]
+    out = dict(first=first, last=losses[steps - 1], replay=replay,
+               n_equal=n_equal, window_s=window_s,
+               steps_per_s=(steps - 2) / window_s,
+               tokens_per_s=(steps - 2) * tokens / window_s,
+               run_tokens_per_s=steps * tokens / clean_s, step_s=step_s,
+               median_tokens_per_s=tokens / step_s, peak_gb=peak,
+               clean_s=clean_s, faulty_s=faulty_s, params=cfg.param_count())
+    log(f"[train] {cfg.name} ({cfg.param_count() / 1e6:.1f} M params, "
+        f"{cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}, "
+        f"{cfg.microbatches} microbatches): loss {first:.4f} (ln vocab "
+        f"{want_first:.4f}) -> {losses[steps - 1]:.4f} in {steps} steps; "
+        f"steps 2-{steps - 1} with their checkpoint saves in "
+        f"{window_s:.2f} s = {out['steps_per_s']:.3f} steps/s, "
+        f"{out['tokens_per_s']:.0f} tokens/s; the whole run (init and last "
+        f"save in it) {clean_s:.2f} s = {out['run_tokens_per_s']:.0f} "
+        f"tokens/s; per step, the median {step_s * 1e3:.1f} ms = "
+        f"{out['median_tokens_per_s']:.0f} tokens/s; peak device memory "
+        f"{peak:.2f} GB; the failing run {faulty_s:.1f} s (failing at step "
+        f"{fail_step}, restoring step {restored}); replayed losses within "
+        f"{replay:.3g} relative of the clean run's, {n_equal} of "
+        f"{len(losses)} bit for bit")
+
+    # ---- (c) the eval step under no_grad, and (b) one step profiled ----
+    bundle = build_model(cfg)
+    state = faulty["state"]
+    data_cfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=run["seq"],
+                            global_batch=run["batch"])
+    batch = batch_to_device(make_batch(data_cfg, steps), torch.device(device))
+    calls = []
+    flash = attention_mod.flash_attention
+
+    def recorded(q, k, v):
+        out = flash(q, k, v)
+        calls.append((q, k, v, out))
+        return out
+    reset_counts()
+    ev = swapped([(attention_mod, "flash_attention", recorded)],
+                 make_eval_step(bundle), state.params, batch)
+    eval_counts = read_counts()
+    flash_err = 0.0
+    for i, (q, k, v, got) in enumerate(calls):
+        want = flash_attention_ref(q, k, v)
+        e = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(),
+                              rtol=TOL[cfg.dtype], atol=TOL[cfg.dtype]):
+            raise RuntimeError(f"eval step: flash launch {i} at "
+                               f"{tuple(q.shape)} KVH {k.shape[2]} "
+                               f"{cfg.dtype} disagrees with its plain "
+                               f"version on the same inputs, max err {e} "
+                               f"(rtol = atol = {TOL[cfg.dtype]})")
+        flash_err = max(flash_err, e)
+    shape = tuple(calls[0][0].shape) if calls else None
+    del calls, recorded
+    with requiring_grad(state.params), torch.enable_grad():
+        _, met = loss_fn(state.params, batch, bundle)
+    grad_loss = float(met["loss"].detach())
+    del met
+    check_launches(read_counts(), {"flash_attention": cfg.n_layers})
+    eval_rel = abs(float(ev["loss"]) - grad_loss) / abs(grad_loss)
+    if eval_counts["flash_attention"] != cfg.n_layers or \
+            eval_rel > EVAL_LOSS_TOL:
+        raise RuntimeError(f"eval step: {eval_counts['flash_attention']} "
+                           f"flash launches (want {cfg.n_layers}); loss "
+                           f"{float(ev['loss']):.5f} vs {grad_loss:.5f} with "
+                           f"a gradient ({eval_rel:.3g} relative, tol "
+                           f"{EVAL_LOSS_TOL})")
+    log(f"[train] eval step (no_grad): {eval_counts['flash_attention']} "
+        f"flash launches a call, each at q {shape} against its plain "
+        f"version on its own inputs: max_abs_err {flash_err:.3g} (allclose"
+        f" at rtol = atol = {TOL[cfg.dtype]}); loss "
+        f"{float(ev['loss']):.5f} vs "
+        f"{grad_loss:.5f} with a gradient (chunked_attention), "
+        f"{eval_rel:.3g} relative (tol {EVAL_LOSS_TOL})")
+    out.update(eval_launches=eval_counts["flash_attention"],
+               eval_rel=eval_rel, eval_flash_err=flash_err)
+    train_step, _ = make_train_step(bundle)
+    out["profile"] = profile_train_step(torch, bundle, train_step, state,
+                                        batch, step_s * 1e3)
+    del state, faulty, clean
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train(torch, device: str = "cuda",
+                    steps: int = MOE_TRAIN_STEPS, seq: int = 64,
+                    batch: int = 4) -> dict:
+    """MoE training on the card through the gmm kernel's forward and
+    backward: dbrx-132b reduced with remat "full" and 2 microbatches.  Every
+    expert leaf's gradient is finite and nonzero; the gmm launches equal
+    call sites x (forward + remat recompute + 2 backward) x microbatches x
+    steps; step 1's expert grads (elementwise), loss and grad norm equal
+    the same step on the CPU from the same params."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.lm import LMDataConfig, make_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.step import TrainState, make_train_step
+    cfg = dataclasses.replace(reduced_config("dbrx-132b"), remat="full",
+                              microbatches=2)
+    bundle = build_model(cfg)
+    cpu = torch.device("cpu")
+    host_params = bundle.init(SEED, cpu)
+    data_cfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                            global_batch=batch)
+    train_step, opt = make_train_step(bundle)
+    params = tree_map(lambda t: t.to(device, copy=True), host_params)
+    state = TrainState(0, params, opt.init(params))
+    host_step, host_opt = make_train_step(bundle)
+    host_raw, host_grads = host_step.grads(
+        host_params, batch_to_device(make_batch(data_cfg, 0), cpu))
+    reset_counts()
+    met, grads = train_step.grads(
+        state.params, batch_to_device(make_batch(data_cfg, 0),
+                                      torch.device(device)))
+    experts = [(f"layer {i} {k}", lp["moe"][k], hp["moe"][k])
+               for i, (lp, hp) in enumerate(zip(grads["layers"],
+                                                host_grads["layers"]))
+               for k in ("gate", "up", "down")]
+    bad = [name for name, g, _ in experts
+           if not (torch.isfinite(g).all() and bool((g != 0).any()))]
+    if bad:
+        raise RuntimeError(f"expert grads not finite and nonzero: {bad}")
+    # each expert leaf elementwise against the CPU's, as a share of the
+    # leaf's largest magnitude
+    grad_err = {name: float((g.cpu() - want).abs().max()
+                            / want.abs().max())
+                for name, g, want in experts}
+    worst = max(grad_err, key=grad_err.get)
+    if grad_err[worst] > MOE_TRAIN_TOL:
+        raise RuntimeError(f"dbrx-132b reduced step 1: expert grads on the "
+                           f"card vs the CPU differ by up to "
+                           f"{grad_err[worst]:.3g} of the leaf's largest "
+                           f"magnitude at {worst} (tol {MOE_TRAIN_TOL})")
+    state, met1 = train_step.update(state, grads, met)
+    del grads, experts
+    for s in range(1, steps):
+        state, _ = train_step(state, batch_to_device(
+            make_batch(data_cfg, s), torch.device(device)))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    passes = 1 + (cfg.remat != "none") + 2
+    want = 3 * cfg.n_layers * passes * cfg.microbatches * steps
+    check_launches(counts, {"moe_gmm": want})
+    _, host_met = host_step.update(
+        TrainState(0, host_params, host_opt.init(host_params)), host_grads,
+        host_raw)
+    rel = {k: abs(float(met1[k]) - float(host_met[k])) / abs(
+        float(host_met[k])) for k in ("loss", "grad_norm")}
+    if max(rel.values()) > MOE_TRAIN_TOL:
+        raise RuntimeError(f"dbrx-132b reduced step 1 on the card vs the "
+                           f"CPU: {rel} relative (tol {MOE_TRAIN_TOL})")
+    log(f"[train] {cfg.name} (remat {cfg.remat}, {cfg.microbatches} "
+        f"microbatches, {cfg.dtype}): {steps} steps, every expert grad "
+        f"finite and nonzero; gmm launches {counts['moe_gmm']} = 3 sites x "
+        f"{cfg.n_layers} layers x {passes} passes x {cfg.microbatches} "
+        f"microbatches x {steps} steps (paths {read_paths('moe_gmm')}); "
+        f"step 1's {len(grad_err)} expert grads elementwise within "
+        f"{grad_err[worst]:.3g} of each leaf's largest magnitude of the "
+        f"CPU's ({worst}; tol {MOE_TRAIN_TOL}); loss "
+        f"{float(met1['loss']):.6f} / CPU "
+        f"{float(host_met['loss']):.6f}, grad norm "
+        f"{float(met1['grad_norm']):.6f} / {float(host_met['grad_norm']):.6f}"
+        f" (relative {rel['loss']:.3g}, {rel['grad_norm']:.3g}; tol "
+        f"{MOE_TRAIN_TOL})")
+    return dict(launches=counts["moe_gmm"],
+                backward_launches=3 * cfg.n_layers * 2 * cfg.microbatches
+                * steps, rel=rel, grad_err=grad_err[worst])
+
+
+def gmm_entry(moe, bwd=None, moe_train=None) -> dict:
     """The ``kernels`` line's entry for the grouped matmul, from phase 12:
     launches of the dense engine's run; times per launch over one decode
-    step's inputs, and (``prefill_*``) one prefill's."""
+    step's inputs, and (``prefill_*``) one prefill's; with phase 14's
+    results, ``backward_*`` the two launches of one backward at dbrx-132b's
+    prefill shape (phase 14a) and ``train_launches`` phase 14d's."""
     d, pre = moe["paths"]["decode"], moe["paths"]["prefill"]
-    return {
+    entry = {
         "name": "moe_gmm",
         "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
@@ -2854,8 +3397,23 @@ def gmm_entry(moe) -> dict:
                    "run (8 of 40 layers); times per launch averaged over one "
                    "decode step's 24 launches (cap 8 at 8 slots), prefill_* "
                    "over one 704-token prefill's 24 (cap 224); rel_err is "
-                   "the largest normwise error there, the gate",
+                   "the largest normwise error there, the gate; backward_* "
+                   "the backward's two launches (dX^T = gmm(W, dY^T), dW = "
+                   "gmm(X^T, dY)) at E 16, C 224, D 6144, F 10752 bf16, "
+                   "beside torch.bmm's two products on strided transposes; "
+                   "backward_function_ms the whole backward with its "
+                   "transposes of dY, X and dX; train_launches from "
+                   "dbrx-132b reduced training (phase 14d)",
     }
+    if bwd is not None:
+        entry.update({f"backward_{k}": bwd[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "function_ms")}, backward_max_abs_err=bwd["err"],
+            backward_rel_err=bwd["rel"])
+    if moe_train is not None:
+        entry.update(train_launches=moe_train["launches"],
+                     train_backward_launches=moe_train["backward_launches"])
+    return entry
 
 
 def tensor_core_report(build) -> None:
@@ -3001,6 +3559,12 @@ def main() -> int:
     moe = phase_moe(torch)
     torch.cuda.empty_cache()
     search = phase_search(torch, ecg["data"], card=card)
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    gmm_bwd = phase_gmm_backward(torch)
+    train = phase_train(torch)
+    moe_train = phase_moe_train(torch)
+    log(f"[train] phase 14 in {time.perf_counter() - t_train:.1f}s")
     zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
@@ -3084,17 +3648,24 @@ def main() -> int:
         "bound_ms": zp["flash_attention"]["bound_ms"],
         "bound_by": zp["flash_attention"]["bound_by"],
         "library_ms": zp["flash_attention"]["library_ms"],
+        "eval_launches": train["eval_launches"],
         "library": "scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True); launches from zamba2-7b's dense engine "
                    "run, times per launch averaged over one prefill's 13 "
-                   "shared-block applications (hd 112)",
-    }, gmm_entry(moe)]
-    log(f"[done] phases 3-13 in {time.perf_counter() - t_total:.1f}s; ecg "
+                   "shared-block applications (hd 112); eval_launches: one "
+                   "qwen2-0.5b eval step's (phase 14c)",
+    }, gmm_entry(moe, gmm_bwd, moe_train)]
+    log(f"[done] phases 3-14 in {time.perf_counter() - t_total:.1f}s; ecg "
         f"rates {ecg['rates']}; zamba2-7b tok/s dense "
         f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
         f" mamba2-780m tok/s {mamba['tok_s']:.1f}; dbrx-132b (8 layers) "
         f"tok/s dense {moe['dense']['tok_s']:.1f}, paged "
-        f"{moe['paged']['tok_s']:.1f}; search {search['rates']}")
+        f"{moe['paged']['tok_s']:.1f}; search {search['rates']}; "
+        f"qwen2-0.5b training {train['tokens_per_s']:.0f} tokens/s over "
+        f"steps 2-{TRAIN_RUN['steps'] - 1} with checkpoints "
+        f"({train['run_tokens_per_s']:.0f} over "
+        f"the whole run), {train['steps_per_s']:.3f} steps/s, peak "
+        f"{train['peak_gb']:.2f} GB")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

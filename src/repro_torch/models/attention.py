@@ -3,12 +3,13 @@
 Counterpart of ``repro/models/attention.py`` for the dense LM family:
 grouped KV heads (GQA/MQA), qk-norm (qwen3), QKV bias (qwen2) and plain
 RoPE.  Training runs :func:`chunked_attention` in plain PyTorch, as the
-reference runs its jnp path there.  Prefill's causal full-sequence product
-goes through ``kernels/flash_attention``, and every decode path, the
-engine's slotted and paged steps and the scalar step of its oracle,
-through ``kernels/decode_attention``: the hand-written CUDA kernels for
-CUDA tensors, their plain versions on the CPU (and, for prefill, under
-autograd: the flash kernel has no backward).
+reference runs its jnp path there.  The causal full-sequence product goes
+through ``kernels/flash_attention`` wherever no gradient is taken (prefill,
+an eval step), and every decode path, the engine's slotted and paged steps
+and the scalar step of its oracle, through ``kernels/decode_attention``:
+the hand-written CUDA kernels for CUDA tensors, their plain versions on
+the CPU (and :func:`chunked_attention` under autograd: the flash kernel
+has no backward).
 
 Decode writes the new K/V row into the cache or pool *in place* (the
 reference's ``dynamic_update_slice`` and ``.at[].set`` return new arrays);
@@ -191,15 +192,26 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     positions: Optional[torch.Tensor] = None,
                     causal: bool = True, use_rope: bool = True
                     ) -> torch.Tensor:
-    """Self-attention over a full sequence (train / prefill)."""
+    """Self-attention over a full sequence (train / eval).  Where no
+    gradient is taken the causal product runs the flash-attention op, as
+    :func:`attention_prefill` does; under autograd it runs
+    ``chunked_attention``, the reference's function (the flash kernel has
+    no backward)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
         if positions is None:
             positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
-    out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    if causal and not _grad_taken(q, k, v):
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    else:
+        out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     return out.reshape(b, s, -1) @ p["o"].to(x.dtype)
+
+
+def _grad_taken(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
@@ -216,7 +228,7 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
         if positions is None:
             positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _grad_taken(q, k, v):
         out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     else:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())

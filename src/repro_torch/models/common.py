@@ -1,17 +1,24 @@
 """Shared building blocks: norms, RoPE, init.
 
 Counterpart of ``repro/models/common.py`` (norms, ``rope_freqs``,
-``apply_rope``, init).  Parameters are plain nested dicts of tensors with
-the reference's ``(in, out)`` matrix layout, so ``x @ W`` reads the same in
-both packages.  M-RoPE, the sinusoidal tables and the logical-axis specs
-belong to families a later slice ports.
+``apply_rope``, init), and of ``repro/models/transformer.py: _remat``.
+Parameters are plain nested dicts of tensors with the reference's ``(in,
+out)`` matrix layout, so ``x @ W`` reads the same in both packages.
+M-RoPE, the sinusoidal tables and the logical-axis specs belong to
+families a later slice ports.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 # ---------------------------------------------------------------------------
 # Norms (f32 inside, cast back to the input dtype)
@@ -105,3 +112,37 @@ def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, list):
         return [cast_tree(v, dtype) for v in tree]
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (cfg.remat), taken only where a gradient is taken
+# ---------------------------------------------------------------------------
+
+# Products with no batch dimension, the ops whose outputs the reference's
+# ``checkpoint_dots_with_no_batch_dims`` policy saves: ``x @ W`` dispatches
+# to these; attention's batched einsums (bmm) and the grouped matmul are
+# recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(mode: str, fn: Callable, *args) -> Any:
+    """``fn(*args)`` under ``cfg.remat``: ``"full"`` saves only the inputs
+    and recomputes the rest in the backward (``jax.checkpoint``),
+    ``"dots"`` also saves the products without batch dims, ``"none"``
+    saves everything.  Without a gradient (serving, ``no_grad``) it is a
+    plain call whatever the mode."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if mode == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    if mode != "full":
+        raise ValueError(f"unknown remat mode {mode!r}")
+    return checkpoint(fn, *args, use_reentrant=False)

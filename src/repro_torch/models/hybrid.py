@@ -49,6 +49,7 @@ from repro_torch.models.common import (
     cast_tree,
     embed_init,
     init_norm,
+    remat_call,
 )
 from repro_torch.models.mamba2 import (
     init_mamba2,
@@ -121,23 +122,42 @@ def _norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return apply_norm(cfg.norm, x, p, cfg.norm_eps)
 
 
+def _mamba_layer_fwd(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + mamba2_block(lp["mamba"], _norm(lp["norm"], x, cfg), cfg)
+
+
+def _group_fwd(group, shared, x: torch.Tensor, cfg: ModelConfig,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+    for lp in group:
+        x = _mamba_layer_fwd(lp, x, cfg)
+    h = x + attention_block(shared["attn"], _attn_in(shared, x, cfg), cfg,
+                            positions=positions, causal=True)
+    return _mlp_residual(shared, h, cfg)
+
+
 def hybrid_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
                   tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward. Returns (final-norm hidden (B,S,D), aux_loss = 0)."""
+    """Backbone forward. Returns (final-norm hidden (B,S,D), aux_loss = 0).
+    Where a gradient is taken, each group (its Mamba layers and the shared
+    block) and each tail layer is rematerialised unless ``cfg.remat`` is
+    ``"none"``, as the reference checkpoints its two scan bodies (its
+    ``"dots"`` is ``"full"`` here)."""
+    mode = "none" if cfg.remat == "none" else "full"
     x = embed_tokens(params, tokens, cfg)
     shared = params.get("shared")
     for group in params.get("groups", []):
-        for lp in group:
-            x = x + mamba2_block(lp["mamba"], _norm(lp["norm"], x, cfg), cfg)
-        h = x + attention_block(shared["attn"], _attn_in(shared, x, cfg), cfg,
-                                positions=positions, causal=True)
-        x = _mlp_residual(shared, h, cfg)
+        x = remat_call(mode, _group_fwd, group, shared, x, cfg, positions)
     for lp in params.get("tail", []):
-        x = x + mamba2_block(lp["mamba"], _norm(lp["norm"], x, cfg), cfg)
+        x = remat_call(mode, _mamba_layer_fwd, lp, x, cfg)
     x = _norm(params["final_norm"], x, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def hybrid_unembed(params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    return x @ params["unembed"].to(x.dtype)
 
 
 def hybrid_forward(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -146,7 +166,7 @@ def hybrid_forward(params: Dict[str, Any], cfg: ModelConfig, *,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward. Returns (logits (B,S,V), aux_loss)."""
     x, aux = hybrid_hidden(params, cfg, tokens=tokens, positions=positions)
-    return x @ params["unembed"].to(x.dtype), aux
+    return hybrid_unembed(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """ModelBundle: one functional API over the ported architecture families.
 
-Counterpart of ``repro/models/registry.py``, holding only the fields the
-serving path reads.  Family dispatch happens once, here: the dense and
-MoE LM families, and the SSM and hybrid families (mamba2, zamba2).
+Counterpart of ``repro/models/registry.py``, holding the fields the
+serving and training paths read (the dry run's ``specs``, ``input_specs``
+and ``cache_shapes`` wait for the TPU-pod tooling).  Family dispatch
+happens once, here: the dense and MoE LM families, and the SSM and hybrid
+families (mamba2, zamba2).
 
 * ``init(seed, device) -> params``
 * ``apply_train(params, batch) -> (logits, aux)`` — full teacher-forced pass
+* ``apply_hidden(params, batch) -> (hidden, aux)`` and
+  ``unembed_chunk(params, x) -> logits`` — the chunked loss's halves
 * ``prefill(params, batch) -> (last_logits, cache)``
 * ``decode_step(params, cache, batch) -> (logits, cache)``
 * ``make_cache(batch, cache_len, device)`` / ``make_slot_cache(...)``
@@ -37,6 +41,12 @@ class ModelBundle:
                           Tuple[torch.Tensor, Any]]
     make_cache: Callable[..., Any]
     cache_specs: Callable[[], Any]
+    # chunked-loss path: backbone hidden states + per-chunk unembed, so
+    # (B, S, V) logits never fully materialise in training
+    apply_hidden: Optional[Callable[[Any, Dict[str, Any]],
+                                    Tuple[torch.Tensor, torch.Tensor]]] = None
+    unembed_chunk: Optional[Callable[[Any, torch.Tensor],
+                                     torch.Tensor]] = None
     # slot-cache serving path: ``prefill_slotted(params, {"tokens": (B, L),
     # "lens": (B,), "cache_len": int})``, ``decode_slotted(params, cache,
     # {"tokens": (B, 1), "active": (B,) bool})``; ``prefill_pads`` says
@@ -60,6 +70,10 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
     def apply_train(params, batch):
         return M_lm.lm_forward(params, cfg, tokens=batch["tokens"],
                                positions=batch.get("positions"))
+
+    def apply_hidden(params, batch):
+        return M_lm.lm_hidden(params, cfg, tokens=batch["tokens"],
+                              positions=batch.get("positions"))
 
     def prefill(params, batch):
         return M_lm.lm_prefill(params, cfg, tokens=batch["tokens"],
@@ -100,6 +114,8 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
         make_cache=lambda b, s, device=None: M_lm.init_cache(
             cfg, b, s, device=device),
         cache_specs=lambda: M_lm.cache_specs(cfg),
+        apply_hidden=apply_hidden,
+        unembed_chunk=lambda params, x: M_lm.unembed(params, x, cfg),
         prefill_slotted=prefill_slotted,
         decode_slotted=decode_slotted,
         make_slot_cache=lambda b, s, device=None: M_lm.init_slot_cache(
@@ -156,6 +172,10 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
         make_cache=lambda b, s, device=None: M_hybrid.init_hybrid_cache(
             cfg, b, s, device=device),
         cache_specs=lambda: M_hybrid.hybrid_cache_specs(cfg),
+        apply_hidden=lambda params, batch: M_hybrid.hybrid_hidden(
+            params, cfg, tokens=batch["tokens"]),
+        unembed_chunk=lambda params, x: M_hybrid.hybrid_unembed(
+            params, x, cfg),
         prefill_slotted=prefill_slotted,
         decode_slotted=decode_slotted,
         make_slot_cache=lambda b, s, device=None:

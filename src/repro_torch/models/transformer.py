@@ -37,6 +37,7 @@ from repro_torch.models.common import (
     cast_tree,
     embed_init,
     init_norm,
+    remat_call,
 )
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
@@ -140,20 +141,27 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ params["unembed"].to(x.dtype)
 
 
+def _layer_fwd(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+               positions: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    h = x + attention_block(lp["attn"], _attn_in(lp, x, cfg), cfg,
+                            positions=positions, causal=True)
+    return _ffn_residual(lp, h, cfg)
+
+
 def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
               tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward. Returns (final-norm hidden (B,S,D), aux_loss): the
     sum of the MoE layers' load-balance losses, a zero for the dense
-    family."""
+    family.  Where a gradient is taken each layer runs under
+    ``cfg.remat`` (:func:`remat_call`), as the reference's scan body."""
     check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        h = x + attention_block(lp["attn"], _attn_in(lp, x, cfg), cfg,
-                                positions=positions, causal=True)
-        x, aux_l = _ffn_residual(lp, h, cfg)
+        x, aux_l = remat_call(cfg.remat, _layer_fwd, lp, x, cfg, positions)
         if aux_l is not None:
             aux = aux + aux_l
     x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)

@@ -11,10 +11,15 @@ stacks ``groups`` as ``(n_groups, period, ...)`` and ``tail`` as ``(tail,
 both sides.  An ECG candidate is a list of per-layer
 dicts on both sides.  Leaf names and ``(in, out)`` matrix layouts are the
 same on both sides.
+
+A leaf may be a numpy array (``jax.tree.map(np.asarray, ...)``, bf16 as
+``ml_dtypes``) or a CPU tensor (a ``repro`` checkpoint read by the port's
+``Checkpointer.restore_tree``, bf16 already a torch dtype).
+:func:`train_state_from_jax` maps a whole ``repro`` ``TrainState``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +28,8 @@ from repro_torch.device import DeviceLike, resolve_device
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":      # ml_dtypes bf16: reinterpret bits
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -39,14 +46,13 @@ def _map(tree: Any, fn) -> Any:
 
 def _unstack(tree: Any, n: int, dev: torch.device) -> List[Any]:
     """A tree stacked on a leading axis of ``n`` -> a list of ``n`` trees."""
-    return [_map(tree, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
-            for i in range(n)]
+    return [_map(tree, lambda a, i=i: _tensor(a[i], dev)) for i in range(n)]
 
 
 def _leading(tree: Any) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return np.asarray(tree).shape[0]
+    return tree.shape[0]
 
 
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
@@ -61,7 +67,7 @@ def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
                                  lambda a: _tensor(a, dev))
         if "groups" in tree:
             groups = tree["groups"]
-            per_group = [_map(groups, lambda a, g=g: np.asarray(a)[g])
+            per_group = [_map(groups, lambda a, g=g: a[g])
                          for g in range(_leading(groups))]
             out["groups"] = [_unstack(t, _leading(t), dev)
                              for t in per_group]
@@ -88,3 +94,34 @@ def candidate_params_from_jax(params_list: Sequence[Dict[str, Any]],
     per-layer dicts on ``device``, each leaf in its source dtype."""
     dev = resolve_device(device)
     return [{k: _tensor(v, dev) for k, v in p.items()} for p in params_list]
+
+
+def train_state_from_jax(state: Any, device: DeviceLike = None):
+    """``state`` is a ``repro`` ``TrainState`` of an LM, SSM or hybrid
+    model (as a NamedTuple with numpy leaves, or as the nested dicts of
+    ``Checkpointer.restore_tree`` over a ``repro`` checkpoint).  Returns
+    the port's ``TrainState`` on ``device``: params and AdamW's ``m`` and
+    ``v`` in the port's layout (:func:`params_from_jax`); Adafactor's
+    ``vr`` and ``vc`` keep the reference's stacked layout, which the
+    port's Adafactor keeps too."""
+    from repro_torch.optim.adamw import AdafactorState, AdamWState
+    from repro_torch.training.step import TrainState
+
+    def get(tree, key):
+        return tree[key] if isinstance(tree, Mapping) else getattr(tree, key)
+
+    dev = resolve_device(device)
+    opt = get(state, "opt_state")
+    opt_step = int(np.asarray(get(opt, "step")))
+    if (isinstance(opt, Mapping) and "m" in opt) or hasattr(opt, "m"):
+        opt_state = AdamWState(step=opt_step,
+                               m=params_from_jax(get(opt, "m"), dev),
+                               v=params_from_jax(get(opt, "v"), dev))
+    else:
+        opt_state = AdafactorState(
+            step=opt_step,
+            vr=_map(get(opt, "vr"), lambda a: _tensor(a, dev)),
+            vc=_map(get(opt, "vc"), lambda a: _tensor(a, dev)))
+    return TrainState(step=int(np.asarray(get(state, "step"))),
+                      params=params_from_jax(get(state, "params"), dev),
+                      opt_state=opt_state)

@@ -34,3 +34,13 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_ml_dtypes_import(path):
+    """ml_dtypes ships with JAX and the GPU machine has no JAX: the port
+    reaches bf16 bits through ``tensor.view(torch.int16)``."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] == "ml_dtypes"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

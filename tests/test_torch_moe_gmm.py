@@ -88,3 +88,45 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     (x, w), _ = _inputs(2, 4, 8, 6, "float32")
     with pytest.raises(ValueError, match=match):
         gmm(*make(x, w))
+
+
+@pytest.mark.parametrize("e,c,d,f", [(4, 32, 64, 48), (3, 1, 100, 72),
+                                     (2, 17, 6, 130)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_grads_through_the_function_equal_einsum_autograd(e, c, d, f,
+                                                          dtype):
+    """dX and dW through the op's autograd Function (two more grouped
+    matmuls, on the transposes) against autograd through gmm_ref's einsum,
+    to 1e-5 (bf16: the same roundings on both sides); ``out.grad_fn`` is
+    the Function's."""
+    from repro_torch.kernels.moe_gmm.ops import GroupedMatmul
+    (x, w), _ = _inputs(e, c, d, f, dtype, seed=2)
+    dy = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(e, c, f)).astype(np.float32)).to(x.dtype)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    ws = [w.clone().requires_grad_(True) for _ in range(2)]
+    out = gmm(xs[0], ws[0])
+    assert out.grad_fn is not None
+    assert type(out.grad_fn).__name__ == "GroupedMatmulBackward"
+    assert out.grad_fn.__class__.__qualname__.startswith(
+        GroupedMatmul.__name__)
+    out.backward(dy)
+    gmm_ref(xs[1], ws[1]).backward(dy)
+    for got, want in ((xs[0].grad, xs[1].grad), (ws[0].grad, ws[1].grad)):
+        assert got.dtype == want.dtype == x.dtype
+        np.testing.assert_allclose(np_of(got.float()), np_of(want.float()),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_backward_takes_only_the_grads_it_needs():
+    """A frozen operand gets no product: x alone, w alone, and neither
+    (no_grad: no graph)."""
+    (x, w), _ = _inputs(2, 4, 8, 6, "float32")
+    xg = x.clone().requires_grad_(True)
+    gmm(xg, w).sum().backward()
+    assert xg.grad is not None and w.grad is None
+    wg = w.clone().requires_grad_(True)
+    gmm(x, wg).sum().backward()
+    assert wg.grad is not None
+    with torch.no_grad():
+        assert gmm(xg, wg).grad_fn is None
