@@ -10,10 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA device must be present; the card's name and power limit are read
    with nvidia-smi;
 2. the port's CUDA sources are built (repro_torch/_build.py, nvcc for
-   sm_90a), and the build seconds printed, with each tensor-core kernel's
-   registers and spills (none may spill), ptxas's wgmma serialisation
-   warnings (none allowed) and the wgmma (HGMMA) instructions in the
-   flash and gmm libraries' SASS (cuobjdump; some must be there); the
+   sm_90a), and the build seconds printed, with each wgmma kernel's
+   registers and spills (none may spill; the flash kernel and the gmm
+   forward, dX, decode and dW kernels must all be there), ptxas's wgmma
+   serialisation warnings (none allowed) and each of those kernels' wgmma
+   (HGMMA) instructions in its library's SASS (cuobjdump; some must be
+   there); the
    decode kernels' registers and spills (none may spill), their cluster
    size, and the mma.sync (HMMA) instructions of their bf16 path (some
    must be there); likewise every instantiation of the SSD scan (none may
@@ -155,17 +157,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    evaluation (torch.profiler) are printed;
 14. training: (a) the grouped matmul under autograd at dbrx-132b's
    prefill shape (bf16) and one f32 shape: its output has the Function's
-   grad_fn, its backward launches the kernel twice, and dX and dW equal
-   autograd through gmm_ref (phase 12's tolerances); the two launches are
-   timed beside their plain version, torch.bmm and their bound, each
-   apart, and the whole backward with its transposes; (b)
+   grad_fn, its backward launches the kernels twice on the operands as
+   they lie (dx_wgmma and dw_wgmma in bf16, dx_f32 and dw_f32 in f32),
+   dX and dW equal autograd through gmm_ref (phase 12's tolerances), and
+   a second backward equals the first bit for bit; the Function's
+   backward (its two launches) and dX and dW apart are timed beside their
+   plain versions, torch.bmm and their bounds; (b)
    qwen2-0.5b at its published config (24 layers, vocab 151936, bf16,
    remat "full", 2 microbatches, AdamW) through
    repro_torch.launch.train.main, 30 steps at batch 8 x 512 with
    checkpoints every 10, then again with a failure injected at step 15:
    the first loss is near ln(vocab), the loss falls, the failed run
-   restores step 10 and replays to the clean run's losses (2e-3
-   relative); steps/s and tokens/s over steps 2-29 with their checkpoint
+   restores step 10 and replays to the clean run bit for bit (all 30
+   losses and the final params; and the losses within 2e-3 relative);
+   steps/s and tokens/s over steps 2-29 with their checkpoint
    saves and over the whole run, the median step, peak memory, and one
    step's device time split into forward, backward, remat recompute and
    optimizer with its idle share (torch.profiler); (c) the eval step under
@@ -349,10 +354,16 @@ GMM_BWD_CASES = [(16, 224, 6144, 10752, "bfloat16"),
 # Phase 14b: qwen2-0.5b at its published config (24 layers, vocab 151936,
 # bf16, remat "full", 2 microbatches, AdamW) trained through the launcher
 # for 30 steps at batch 8 x 512 tokens, checkpoints every 10; the second
-# run fails at step 15, restores step 10 and replays.  The embedding's
-# backward sums rows with atomics, so the replay need not be bit for bit
-# on the card: its losses are held to the first run's within 2e-3
-# relative, and how far they moved is printed.
+# run fails at step 15, restores step 10 and replays.  The reference's
+# restart contract is bitwise (tests/test_checkpoint_loop.py: identical
+# final params after injected failures), and every op of the step sums
+# in an order fixed by its inputs (the embedding's backward sorts the ids
+# and sums each row in a fixed tree; gmm's backward has no split-K), so
+# the replayed run's losses at every step and its final params must equal
+# the clean run's bit for bit.  The losses are also held to the clean
+# run's within 2e-3 relative, and how far they moved is printed: the
+# looser gate still tells a small drift from a broken restore should
+# the bitwise one fail.
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_RUN = dict(steps=30, batch=8, seq=512, ckpt_every=10, fail_step=15)
 TRAIN_REPLAY_TOL = 2e-3
@@ -2884,16 +2895,18 @@ def phase_search(torch, data, device=None, card: str = "",
                 winner=describe(winner.genome, space), state=state)
 
 
-def gmm_bwd_bound_ms(x, w) -> tuple:
-    """Least time for the backward's two products of one grouped matmul
-    (x: (E, C, D), w: (E, D, F)): dY, W and X read once for each product
-    that reads them, dX and dW written once; 4 E C D F flops."""
+def gmm_grad_bound_ms(x, w, which=("dx", "dw")) -> tuple:
+    """Least time for the backward's products of a grouped matmul (x: (E,
+    C, D), w: (E, D, F)) named in ``which``: dX = dY W^T reads dY and W and
+    writes dX; dW = X^T dY reads X and dY and writes dW; each is 2 E C D F
+    flops.  The larger of their bytes over HBM's rate and their flops over
+    the peak."""
     e, c, d = x.shape
     f = w.shape[2]
-    item = x.element_size()
-    nbytes = ((e * c * f + w.numel() + e * c * d)          # dX = dY W^T
-              + (x.numel() + e * c * f + w.numel())) * item  # dW = X^T dY
-    flops = 2 * gmm_flops(x, w)
+    per = {"dx": e * c * f + w.numel() + e * c * d,
+           "dw": x.numel() + e * c * f + w.numel()}
+    nbytes = sum(per[k] for k in which) * x.element_size()
+    flops = len(which) * gmm_flops(x, w)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2907,38 +2920,82 @@ def bmm_backward_call(x, w, dy):
             torch.bmm(x.transpose(1, 2), dy))
 
 
-def phase_gmm_backward(torch, device: str = "cuda", cases=GMM_BWD_CASES,
-                       timed: bool = True) -> dict:
-    """The grouped matmul under autograd: ``gmm``'s output has the
-    Function's grad_fn, its backward launches the kernel twice (dX, dW),
-    and both gradients equal autograd through gmm_ref on the same card
-    tensors, elementwise and normwise.  Then the two launches are timed
-    beside their plain version, torch.bmm and their bound.  Returns the
-    first (dbrx-132b) case's numbers."""
-    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+def gmm_backward_call(needs=(True, True)):
+    """``GroupedMatmul.backward`` as autograd calls it, on (x, w, dy): the
+    products ``needs`` asks for, each one launch on the card."""
     from repro_torch.kernels.moe_gmm.ops import GroupedMatmul
-    first = None
+
+    def call(x, w, dy):
+        class Ctx:
+            saved_tensors = (x, w)
+            needs_input_grad = needs
+        return GroupedMatmul.backward(Ctx, dy)
+    return call
+
+
+def gmm_grad_paths(dtype) -> tuple:
+    """The paths csrc/moe_gmm.cu's backward entry point should take for
+    dX and dW of contiguous, TMA-able operands."""
+    if str(dtype) == "torch.float32":
+        return "dx_f32", "dw_f32"
+    return "dx_wgmma", "dw_wgmma"
+
+
+def phase_gmm_backward(torch, device: str = "cuda", cases=GMM_BWD_CASES,
+                       timed: bool = True) -> list:
+    """The grouped matmul under autograd: ``gmm``'s output has the
+    Function's grad_fn, its backward launches the kernels twice (dX on
+    one path, dW on another, on the operands as they lie), both gradients
+    equal autograd through gmm_ref on the same card tensors, elementwise
+    and normwise, and a second backward on the same inputs equals the
+    first bit for bit.  Then dX and dW are timed apart and together (the
+    whole Function, now just its two launches) beside their plain
+    versions, torch.bmm and their bounds.  Returns each case's numbers."""
+    from repro_torch.kernels.moe_gmm import (
+        gmm,
+        gmm_dw_ref,
+        gmm_dx_ref,
+        gmm_ref,
+    )
+    from repro_torch.kernels.moe_gmm.ops import GroupedMatmul
+    results = []
     for e, c, d, f, name in cases:
         dtype = getattr(torch, name)
         gen = torch.Generator(device=device).manual_seed(SEED)
         x, w = gmm_inputs(torch, e, c, d, f, dtype, device, gen)
         dy = torch.randn(e, c, f, generator=gen, device=device).to(dtype)
-        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        out = gmm(xg, wg)
-        if not type(out.grad_fn).__name__.startswith(GroupedMatmul.__name__):
-            raise RuntimeError(f"gmm's output has grad_fn {out.grad_fn}, "
-                               f"not GroupedMatmul's")
-        before = gmm.launches
-        out.backward(dy)
-        torch.cuda.synchronize()
-        if x.is_cuda and gmm.launches != before + 2:
-            raise RuntimeError(f"gmm's backward launched the kernel "
-                               f"{gmm.launches - before} times, want 2")
+        grads = []
+        for _ in range(2):
+            xg = x.clone().requires_grad_(True)
+            wg = w.clone().requires_grad_(True)
+            out = gmm(xg, wg)
+            if not type(out.grad_fn).__name__.startswith(
+                    GroupedMatmul.__name__):
+                raise RuntimeError(f"gmm's output has grad_fn "
+                                   f"{out.grad_fn}, not GroupedMatmul's")
+            before, paths = gmm.launches, read_paths("moe_gmm")
+            out.backward(dy)
+            torch.cuda.synchronize()
+            taken = {k: n - paths[k]
+                     for k, n in read_paths("moe_gmm").items()
+                     if n != paths[k]}
+            want = dict.fromkeys(gmm_grad_paths(dtype), 1)
+            if x.is_cuda and (gmm.launches != before + 2 or taken != want):
+                raise RuntimeError(f"gmm's backward launched the kernels "
+                                   f"{gmm.launches - before} times on "
+                                   f"{taken}, want 2 on {want}")
+            grads.append((xg.grad, wg.grad))
+            del xg, wg, out
+        repeats = all(torch.equal(a, b) for a, b in zip(*grads))
+        if not repeats:
+            raise RuntimeError(f"gmm backward E={e} C={c} D={d} F={f} "
+                               f"{name}: two backward calls on the same "
+                               f"inputs differ")
         xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         gmm_ref(xr, wr).backward(dy)
         err, rel, worst = 0.0, 0.0, 0.0
-        for what, got, want in (("dX", xg.grad, xr.grad),
-                                ("dW", wg.grad, wr.grad)):
+        for what, got, want in (("dX", grads[0][0], xr.grad),
+                                ("dW", grads[0][1], wr.grad)):
             diff = (got.float() - want.float()).abs()
             tol = GMM_TOL[name]
             r = rel_err(got, want)
@@ -2954,58 +3011,62 @@ def phase_gmm_backward(torch, device: str = "cuda", cases=GMM_BWD_CASES,
             err, rel = max(err, float(diff.max())), max(rel, r)
             worst = max(worst, ratio)
             del diff
-        r = dict(err=err, rel=rel, worst=worst)
-        del xg, wg, xr, wr, out
+        r = dict(case=(e, c, d, f, name), err=err, rel=rel, worst=worst,
+                 repeats=repeats, paths=gmm_grad_paths(dtype))
+        del grads, xr, wr
         torch.cuda.empty_cache()
-        line = (f"[train] gmm backward E={e} C={c} D={d} F={f} {name}: dX and "
-                f"dW max_abs_err={err:.3g}, {worst:.3g} of the tolerance "
+        line = (f"[train] gmm backward E={e} C={c} D={d} F={f} {name}: dX "
+                f"and dW max_abs_err={err:.3g}, {worst:.3g} of the "
+                f"tolerance "
                 f"(rtol = atol = {GMM_TOL[name]}); normwise {rel:.3g} (tol "
-                f"{GMM_NORM_TOL[name]})")
+                f"{GMM_NORM_TOL[name]}); two backward calls equal bit for "
+                f"bit; paths {r['paths'][0]}, {r['paths'][1]}")
         if timed:
-            dy_t, x_t = (t.transpose(1, 2).contiguous() for t in (dy, x))
+            sets = [(x, w, dy)]
 
-            def kernel(w_, dy_t_, x_t_, dy_):   # dX^T = W dY^T, dW = X^T dY
-                return gmm(w_, dy_t_), gmm(x_t_, dy_)
+            def plain(x_, w_, dy_):
+                return gmm_dx_ref(dy_, w_), gmm_dw_ref(x_, dy_)
 
-            def plain(w_, dy_t_, x_t_, dy_):
-                return gmm_ref(w_, dy_t_), gmm_ref(x_t_, dy_)
-
-            def backward(x_, w_, dy_):         # GroupedMatmul.backward
-                class Ctx:
-                    saved_tensors = (x_, w_)
-                    needs_input_grad = (True, True)
-                return GroupedMatmul.backward(Ctx, dy_)
-
-            sets = [(w, dy_t, x_t, dy)]
             with torch.no_grad():
-                r.update(ms=time_ms(kernel, sets),
+                r.update(ms=time_ms(gmm_backward_call(), sets),
                          plain_ms=time_ms(plain, sets, reps=3),
-                         library_ms=time_ms(bmm_backward_call, [(x, w, dy)]),
-                         function_ms=time_ms(backward, [(x, w, dy)]),
-                         dx_ms=time_ms(gmm, [(w, dy_t)]),
-                         dw_ms=time_ms(gmm, [(x_t, dy)]),
-                         dx_bmm_ms=time_ms(lambda a, b: torch.bmm(
-                             a, b.transpose(1, 2)), [(dy, w)]),
-                         dw_bmm_ms=time_ms(lambda a, b: torch.bmm(
-                             a.transpose(1, 2), b), [(x, dy)]))
-            r["bound_ms"], r["bound_by"] = gmm_bwd_bound_ms(x, w)
-            line += (f"; the two launches ms={r['ms']:.4f} plain_ms="
-                     f"{r['plain_ms']:.4f} bmm_ms={r['library_ms']:.4f} "
-                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}), "
+                         library_ms=time_ms(bmm_backward_call, sets),
+                         dx_ms=time_ms(gmm_backward_call((True, False)),
+                                       sets),
+                         dw_ms=time_ms(gmm_backward_call((False, True)),
+                                       sets),
+                         dx_plain_ms=time_ms(
+                             lambda x_, w_, dy_: gmm_dx_ref(dy_, w_), sets,
+                             reps=3),
+                         dw_plain_ms=time_ms(
+                             lambda x_, w_, dy_: gmm_dw_ref(x_, dy_), sets,
+                             reps=3),
+                         dx_bmm_ms=time_ms(lambda x_, w_, dy_: torch.bmm(
+                             dy_, w_.transpose(1, 2)), sets),
+                         dw_bmm_ms=time_ms(lambda x_, w_, dy_: torch.bmm(
+                             x_.transpose(1, 2), dy_), sets))
+            r["bound_ms"], r["bound_by"] = gmm_grad_bound_ms(x, w)
+            for which in ("dx", "dw"):
+                r[f"{which}_bound_ms"], r[f"{which}_bound_by"] = \
+                    gmm_grad_bound_ms(x, w, (which,))
+            line += (f"; the Function's backward (its two launches) ms="
+                     f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bmm_ms="
+                     f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                     f"({r['bound_by']}), "
                      + ratios(r["ms"], bmm=r["library_ms"],
-                              bound=r["bound_ms"]) +
-                     f"; apart, dX^T = W dY^T {r['dx_ms']:.4f} (bmm "
-                     f"{r['dx_bmm_ms']:.4f}) and dW = X^T dY "
-                     f"{r['dw_ms']:.4f} (bmm {r['dw_bmm_ms']:.4f}); the "
-                     f"Function's whole backward (the launches and the "
-                     f"transposes of dY, X and dX) {r['function_ms']:.4f} "
-                     f"ms")
-            del dy_t, x_t
+                              bound=r["bound_ms"]))
+            for which, what in (("dx", "dX = dY W^T"),
+                                ("dw", "dW = X^T dY")):
+                line += (f"; {what} {r[f'{which}_ms']:.4f} ms (plain "
+                         f"{r[f'{which}_plain_ms']:.4f}, bmm "
+                         f"{r[f'{which}_bmm_ms']:.4f}, bound "
+                         f"{r[f'{which}_bound_ms']:.4f} "
+                         f"{r[f'{which}_bound_by']})")
         log(line)
-        first = first or r
+        results.append(r)
         del x, w, dy
         torch.cuda.empty_cache()
-    return first
+    return results
 
 
 def device_busy(torch, fn):
@@ -3107,6 +3168,7 @@ def phase_train(torch, device: str = "cuda", arch: str = TRAIN_ARCH,
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.training.loop import batch_to_device
     from repro_torch.training.step import (
         loss_fn,
@@ -3187,6 +3249,14 @@ def phase_train(torch, device: str = "cuda", arch: str = TRAIN_ARCH,
         raise RuntimeError(f"the replayed run's losses differ from the clean "
                            f"run's by {replay:.3g} relative (tol "
                            f"{TRAIN_REPLAY_TOL})")
+    leaves = list(zip(tree_leaves(clean["state"].params),
+                      tree_leaves(faulty["state"].params)))
+    params_differ = sum(not torch.equal(a, b) for a, b in leaves)
+    if n_equal != len(losses) or params_differ:
+        raise RuntimeError(f"the replayed run is not the clean run bit for "
+                           f"bit: {n_equal} of {len(losses)} losses equal, "
+                           f"{params_differ} of {len(leaves)} final param "
+                           f"leaves differ")
     # The run's rate: steps 2 to the last on the wall clock, the checkpoint
     # saves between them included; the whole run's, its init, first steps
     # and last save included; the median step's, a per-step statistic
@@ -3196,7 +3266,8 @@ def phase_train(torch, device: str = "cuda", arch: str = TRAIN_ARCH,
     step_s = times[len(times) // 2]
     tokens = run["batch"] * run["seq"]
     out = dict(first=first, last=losses[steps - 1], replay=replay,
-               n_equal=n_equal, window_s=window_s,
+               n_equal=n_equal, params_equal=not params_differ,
+               n_leaves=len(leaves), window_s=window_s,
                steps_per_s=(steps - 2) / window_s,
                tokens_per_s=(steps - 2) * tokens / window_s,
                run_tokens_per_s=steps * tokens / clean_s, step_s=step_s,
@@ -3214,8 +3285,9 @@ def phase_train(torch, device: str = "cuda", arch: str = TRAIN_ARCH,
         f"{out['median_tokens_per_s']:.0f} tokens/s; peak device memory "
         f"{peak:.2f} GB; the failing run {faulty_s:.1f} s (failing at step "
         f"{fail_step}, restoring step {restored}); replayed losses within "
-        f"{replay:.3g} relative of the clean run's, {n_equal} of "
-        f"{len(losses)} bit for bit")
+        f"{replay:.3g} relative of the clean run's (tol {TRAIN_REPLAY_TOL}) "
+        f"and {n_equal} of {len(losses)} bit for bit, final params equal "
+        f"bit for bit in all {len(leaves)} leaves")
 
     # ---- (c) the eval step under no_grad, and (b) one step profiled ----
     bundle = build_model(cfg)
@@ -3371,8 +3443,9 @@ def gmm_entry(moe, bwd=None, moe_train=None) -> dict:
     """The ``kernels`` line's entry for the grouped matmul, from phase 12:
     launches of the dense engine's run; times per launch over one decode
     step's inputs, and (``prefill_*``) one prefill's; with phase 14's
-    results, ``backward_*`` the two launches of one backward at dbrx-132b's
-    prefill shape (phase 14a) and ``train_launches`` phase 14d's."""
+    results, ``backward_*`` one backward at dbrx-132b's prefill shape
+    (phase 14a's first case: both launches, and dX and dW apart),
+    ``backward_f32_*`` its f32 case, and ``train_launches`` phase 14d's."""
     d, pre = moe["paths"]["decode"], moe["paths"]["prefill"]
     entry = {
         "name": "moe_gmm",
@@ -3398,36 +3471,53 @@ def gmm_entry(moe, bwd=None, moe_train=None) -> dict:
                    "decode step's 24 launches (cap 8 at 8 slots), prefill_* "
                    "over one 704-token prefill's 24 (cap 224); rel_err is "
                    "the largest normwise error there, the gate; backward_* "
-                   "the backward's two launches (dX^T = gmm(W, dY^T), dW = "
-                   "gmm(X^T, dY)) at E 16, C 224, D 6144, F 10752 bf16, "
+                   "GroupedMatmul's backward at E 16, C 224, D 6144, F "
+                   "10752 bf16: its two launches on dY, W and X as they lie "
+                   "(no transposed copies), dX = dY W^T and dW = X^T dY, "
+                   "together and apart (backward_dx_*, backward_dw_*), "
                    "beside torch.bmm's two products on strided transposes; "
-                   "backward_function_ms the whole backward with its "
-                   "transposes of dY, X and dX; train_launches from "
-                   "dbrx-132b reduced training (phase 14d)",
+                   "backward_f32_* the same at E 16, C 40, D 1024, F 1536 "
+                   "f32; train_launches from dbrx-132b reduced training "
+                   "(phase 14d)",
     }
-    if bwd is not None:
-        entry.update({f"backward_{k}": bwd[k] for k in (
+    for tag, r in zip(("backward", "backward_f32"), bwd or ()):
+        if "ms" not in r:
+            continue
+        entry.update({f"{tag}_{k}": r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "function_ms")}, backward_max_abs_err=bwd["err"],
-            backward_rel_err=bwd["rel"])
+            "dx_ms", "dw_ms", "dx_bmm_ms", "dw_bmm_ms", "dx_bound_ms",
+            "dw_bound_ms")})
+        entry.update({f"{tag}_max_abs_err": r["err"],
+                      f"{tag}_rel_err": r["rel"]})
     if moe_train is not None:
         entry.update(train_launches=moe_train["launches"],
                      train_backward_launches=moe_train["backward_launches"])
     return entry
 
 
+# the wgmma kernels of the flash and gmm libraries, by the name each
+# instantiation's mangled name holds: flash and the gmm forward and dX
+# (wgmma_kernel), the gmm decode path (decode_kernel) and dW (dw_kernel)
+WGMMA_KERNELS = ("wgmma_kernel", "gmm_decode_kernel", "gmm_dw_kernel")
+
+
 def tensor_core_report(build) -> None:
-    """Phase 2's check of the tensor-core kernels: each one's registers
-    and spills from ``-Xptxas -v`` (none may spill), any serialisation
-    warning of ptxas (C7520: wgmma waits inserted by the compiler), and
-    the count of wgmma instructions (HGMMA in the SASS) in each library."""
-    for name in ("flash_attention", "moe_gmm"):
+    """Phase 2's check of the tensor-core kernels: each wgmma
+    instantiation's registers and spills from ``-Xptxas -v`` (none may
+    spill), any serialisation warning of ptxas (C7520: wgmma waits
+    inserted by the compiler), and the count of wgmma instructions (HGMMA
+    in the SASS) in each library."""
+    for name, kinds in (("flash_attention", WGMMA_KERNELS[:1]),
+                        ("moe_gmm", WGMMA_KERNELS)):
         lib = build.library_path(name)
         text = lib.with_suffix(".log").read_text()
+        seen = set()
         for entry in text.split("Compiling entry function")[1:]:
             kernel = re.search(r"'(\S+?)'", entry).group(1)
-            if "wgmma_kernel" not in kernel:
+            kind = next((k for k in kinds if k in kernel), None)
+            if kind is None:
                 continue
+            seen.add(kind)
             regs = re.search(r"Used (\d+) registers", entry).group(1)
             spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
             log(f"[build] {name} {kernel[-60:]}: {regs} registers, {spill} "
@@ -3440,12 +3530,22 @@ def tensor_core_report(build) -> None:
         sass = subprocess.run([cuobjdump, "-sass", str(lib)],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
-        n_wgmma = sum("HGMMA" in line for line in sass.splitlines())
-        log(f"[build] {name}: {n_wgmma} wgmma (HGMMA) instructions in the "
-            f"SASS; ptxas serialisation warnings: {len(serial)}")
-        if not n_wgmma or serial:
-            raise RuntimeError(f"{name}: no wgmma in the library, or ptxas "
-                               f"serialised it: {serial}")
+        per_kind, function = dict.fromkeys(kinds, 0), ""
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                function = found.group(1)
+            elif "HGMMA" in line:
+                for k in kinds:
+                    per_kind[k] += k in function
+        log(f"[build] {name}: wgmma (HGMMA) instructions in the SASS by "
+            f"kernel {per_kind}; ptxas serialisation warnings: "
+            f"{len(serial)}")
+        if not all(per_kind.values()) or serial or seen != set(kinds):
+            raise RuntimeError(f"{name}: a wgmma kernel has no HGMMA in the "
+                               f"SASS ({per_kind}), or ptxas serialised it "
+                               f"({serial}), or is missing from its report "
+                               f"(found {sorted(seen)} of {list(kinds)})")
 
 
 def kernel_report(build, name: str, mma: bool, note: str = "") -> None:

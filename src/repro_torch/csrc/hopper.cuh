@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, moe_gmm.cu, decode_attention.cu): TMA tensor maps,
-// mbarriers, 16-byte asynchronous copies (cp.async), the warp-level MMA
+// (flash_attention.cu, moe_gmm.cu, decode_attention.cu, ssd.cu,
+// dwsep_conv1d.cu): TMA tensor maps, loads and stores, mbarriers, named
+// barriers, 16-byte asynchronous copies (cp.async), the warp-level MMA
 // (mma.sync, ldmatrix) and the warpgroup MMA (wgmma) instructions the
 // tensor-core kernels issue.
 //
@@ -26,7 +27,12 @@
 //  * MN-major operand (the output dimension contiguous: V, w; the
 //    descriptor's transpose bit): a 128-byte row is 64 output columns of
 //    one k; SBO = 1024 bytes steps 8 k rows, LBO = the panel stride steps
-//    64 output columns; step kk starts 16 * 128 * kk bytes in.
+//    64 output columns; step kk starts 16 * 128 * kk bytes in.  bf16 takes
+//    the transpose bit on A as well as on B (moe_gmm.cu reads x^T and w^T
+//    so).
+// A TMA store reads its source box in the same swizzled layout: element
+// (r, c) of a 64-column box at byte r * 128 + ((c / 8) ^ (r % 8)) * 16 +
+// (c % 8) * 2 from a 1024-byte-aligned base.
 //
 // Fragments (m64nNk16, f32 accumulators, per thread t of the warpgroup,
 // warp w = t / 32, lane l = t % 32): d[4j + i] holds row 16w + l/4 + 8(i/2)
@@ -184,6 +190,53 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box from shared memory into a 3-dimensional tensor map (the bulk
+// tensor store): elements past the tensor's extent are not written.  The
+// box is read from shared memory asynchronously, so every thread that
+// wrote it first calls fence_proxy_async() and the block synchronises
+// before one thread issues the store; the buffer may be written again only
+// after that thread's tma_store_wait_read().
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes the thread's bulk stores issued since the last commit into a group.
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's committed store groups are still
+// reading their shared-memory source.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of the thread's committed store groups have not
+// finished writing to global memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (a TMA store or a wgmma that reads them next).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: one warpgroup synchronises without the others.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Matrix descriptor of a 128-byte-swizzled shared-memory operand starting
 // at `addr`; lbo and sbo in bytes (see the note at the top).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
@@ -250,6 +303,19 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "r"(smem_u32(row)));
 }
 
+// The inverse of ldmatrix_x4: lanes 8i..8i+7 give the row addresses (16
+// bytes each) of matrix i, and r[i] is matrix i's fragment (lane l holds
+// its row l / 4, elements 2(l % 4) and 2(l % 4) + 1), which is the layout
+// of a wgmma accumulator's 8 x 8 blocks once packed to bf16 pairs.
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_u32(row)), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* row) {
   asm volatile(
@@ -263,6 +329,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 // scale_d = 0 overwrites d, 1 accumulates into it.  TA / TB set the
 // transpose bit of an operand read from shared memory: 0 K-major, 1
 // MN-major.
+
+// d[4] (+)= A * B, m64n8k16, A and B from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[8] (+)= A * B, m64n16k16, A and B from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 // d[32] (+)= A * B, m64n64k16, A and B from shared memory.
 template <int TA, int TB>

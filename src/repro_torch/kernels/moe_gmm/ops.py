@@ -3,19 +3,17 @@ kernel on the card, the plain PyTorch version on the CPU).
 
 Counterpart of ``repro/kernels/moe_gmm/ops.py: gmm``, the contraction
 ``repro/models/moe.py: moe_block`` spells as ``einsum('ecd,edf->ecf')``.
-The tensor's device picks the path: a CPU tensor goes to the plain version
-in ``ref.py``, a CUDA tensor to the kernel in ``csrc/moe_gmm.cu`` or the
-call raises.  There is no fallback from the kernel to the plain version.
+The tensor's device picks the path: a CPU tensor goes to the plain versions
+in ``ref.py``, a CUDA tensor to the kernels in ``csrc/moe_gmm.cu`` or the
+call raises.  There is no fallback from a kernel to a plain version.
 
-``gmm`` is a ``torch.autograd.Function`` on both devices: its backward is
-two more grouped matmuls on the same path over contiguous per-expert
-transposes (the kernel takes any C, D and F): ``dW = gmm(X^T, dY)``, and
-``dX = gmm(W, dY^T)^T``, the transpose of ``W dY^T`` rather than
-``dY W^T``, so that only the activations are transposed, never the
-weights (at dbrx-132b's prefill shape on an H100 80GB HBM3 at 700 W,
-dX through a transposed copy of the weights took 8.78 ms, this way 0.88
-ms: ``chip_smoke.py`` phase 14a).  The reference differentiates its
-einsum; its Pallas kernel has no VJP.
+``gmm`` is a ``torch.autograd.Function`` on both devices.  Its backward
+is two products on the operands as they lie, with no transposed copies:
+``dX = dY W^T`` (``gmm_dx_ref`` on the CPU) and ``dW = X^T dY``
+(``gmm_dw_ref``).  On the card each is one launch of
+``moe_gmm_backward_launch``, whose kernels read W, X and dY through their
+strides or through TMA and the wgmma descriptors' transpose bits.  The
+reference differentiates its einsum; its Pallas kernel has no VJP.
 """
 from __future__ import annotations
 
@@ -26,22 +24,30 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels._launches import count_launch
-from repro_torch.kernels.moe_gmm.ref import gmm_ref
+from repro_torch.kernels.moe_gmm.ref import gmm_dw_ref, gmm_dx_ref, gmm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# what the C entry point reports it launched (csrc/moe_gmm.cu's note):
-# f32 FMAs; bf16 at C <= 16 (decode); bf16 wgmma with a TMA ring (C > 16,
-# D and F multiples of 8, aligned); bf16 WMMA (C > 16, TMA cannot take it)
-PATHS = ("f32", "decode", "wgmma", "wmma")
+# what the C entry points report they launched (csrc/moe_gmm.cu's note):
+# the forward's f32 FMAs; bf16 at C <= 16 (decode); bf16 wgmma with a TMA
+# ring (C > 16, D and F multiples of 8, aligned); bf16 WMMA (C > 16, TMA
+# cannot take it); then the backward's dX = dY W^T and dW = X^T dY, each on
+# f32 FMAs, bf16 wgmma where TMA takes the tensors, or bf16 WMMA
+PATHS = ("f32", "decode", "wgmma", "wmma", "dx_f32", "dx_wgmma", "dx_wmma",
+         "dw_f32", "dw_wgmma", "dw_wmma")
+_DX, _DW = 0, 1
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load("moe_gmm").moe_gmm_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    return fn
+def _launchers():
+    """(forward, backward) C entry points of the built library."""
+    lib = _build.load("moe_gmm")
+    forward, backward = lib.moe_gmm_launch, lib.moe_gmm_backward_launch
+    tail = [ctypes.c_int] * 5 + [ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.c_int)]
+    forward.argtypes = [ctypes.c_void_p] * 3 + tail
+    backward.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + tail
+    forward.restype = backward.restype = ctypes.c_int
+    return forward, backward
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -62,35 +68,53 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"no gmm for device {x.device}")
 
 
-def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One grouped matmul of checked operands: the plain version for CPU
-    tensors, one launch of the kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return gmm_ref(x, w)
-    e, c, _ = x.shape
-    out = torch.empty((e, c, w.shape[2]), dtype=x.dtype, device=x.device)
+def _launch(shape, like: torch.Tensor, call) -> torch.Tensor:
+    """An empty output of ``shape`` like ``like``, filled by ``call(out,
+    stream, path)`` (one kernel launch), counted by the path it took."""
+    out = torch.empty(shape, dtype=like.dtype, device=like.device)
     if out.numel() == 0:
         return out
-    launch = _launcher()
     path = ctypes.c_int(-1)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c,
-                     x.shape[2], w.shape[2], _DTYPE_CODE[x.dtype], stream,
-                     ctypes.byref(path))
+    with torch.cuda.device(like.device):
+        err = call(out, torch.cuda.current_stream(like.device).cuda_stream,
+                   ctypes.byref(path))
     if err:
         raise RuntimeError(f"gmm kernel launch failed: CUDA error {err}")
     count_launch(gmm, PATHS[path.value])
     return out
 
 
-def _transposed(t: torch.Tensor) -> torch.Tensor:
-    """Each expert's matrix transposed, contiguous: (E, A, B) -> (E, B, A)."""
-    return t.transpose(1, 2).contiguous()
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One grouped matmul of checked operands: the plain version for CPU
+    tensors, one launch of the kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return gmm_ref(x, w)
+    e, c, d = x.shape
+    f = w.shape[2]
+    forward, _ = _launchers()
+    return _launch((e, c, f), x, lambda out, stream, path: forward(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
+        _DTYPE_CODE[x.dtype], stream, path))
+
+
+def _grad(which: int, x: torch.Tensor, w: torch.Tensor,
+          dy: torch.Tensor) -> torch.Tensor:
+    """dX = dY W^T (``_DX``) or dW = X^T dY (``_DW``) of contiguous
+    operands: the plain version for CPU tensors, one launch for CUDA."""
+    if dy.device.type == "cpu":
+        return gmm_dx_ref(dy, w) if which == _DX else gmm_dw_ref(x, dy)
+    e, c, d = x.shape
+    f = w.shape[2]
+    a, b = (dy, w) if which == _DX else (x, dy)
+    _, backward = _launchers()
+    return _launch((e, c, d) if which == _DX else (e, d, f), x,
+                   lambda out, stream, path: backward(
+                       which, a.data_ptr(), b.data_ptr(), out.data_ptr(), e,
+                       c, d, f, _DTYPE_CODE[x.dtype], stream, path))
 
 
 class GroupedMatmul(torch.autograd.Function):
-    """``out[e] = x[e] @ w[e]`` with its gradient through the same op."""
+    """``out[e] = x[e] @ w[e]`` with its gradient as two more products."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -101,10 +125,8 @@ class GroupedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
-        dx = _transposed(_product(w, _transposed(dy))) \
-            if ctx.needs_input_grad[0] else None
-        dw = _product(_transposed(x), dy) if ctx.needs_input_grad[1] \
-            else None
+        dx = _grad(_DX, x, w, dy) if ctx.needs_input_grad[0] else None
+        dw = _grad(_DW, x, w, dy) if ctx.needs_input_grad[1] else None
         return dx, dw
 
 
@@ -112,11 +134,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul. x: (E, C, D), w: (E, D, F) of one dtype (float32 or
     bfloat16), contiguous, on one device.  Returns (E, C, F) in x's dtype,
     accumulated in f32; under autograd its ``grad_fn`` is
-    :class:`GroupedMatmul`'s, whose backward launches the kernel twice
+    :class:`GroupedMatmul`'s, whose backward launches the kernels twice
     (once where only one operand needs a gradient).  ``gmm.launches``
     counts kernel launches, forward and backward, and
-    ``gmm.launches_by_path`` counts them by the path the kernel's entry
-    point took (``PATHS``).  Both paths refuse what the kernel does not
+    ``gmm.launches_by_path`` counts them by the path the kernels' entry
+    points took (``PATHS``).  Both devices refuse what the kernels do not
     take, so what runs on the CPU runs on the card."""
     _check(x, w)
     return GroupedMatmul.apply(x, w)

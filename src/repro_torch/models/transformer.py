@@ -129,9 +129,63 @@ def _attn_in(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
+def embedding_grad(ids: torch.Tensor, grad: torch.Tensor, n_rows: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The (n_rows, D) gradient of ``table.index_select(0, ids)`` for the
+    output gradient ``grad`` (len(ids), D), in ``dtype``, summed in an
+    order that depends only on ``ids``: the rows are sorted by id (a stable
+    sort, so each id keeps its token order), each id's rows are summed in
+    f32 as a pairwise tree (round r adds the row 2^r positions on into
+    every row whose rank in its run is a multiple of 2^(r+1)), and each sum
+    is rounded once to ``dtype`` and gathered to its table row.  Every step
+    is elementwise, a gather, a sort or an integer scan, so the result
+    repeats bit for bit on the card, and equals the CPU's on equal inputs,
+    where ``index_select``'s own backward adds rows with atomics."""
+    n = ids.numel()
+    if n == 0:
+        return grad.new_zeros((n_rows, grad.shape[-1]), dtype=dtype)
+    ids, perm = torch.sort(ids, stable=True)
+    acc = grad.index_select(0, perm).float()
+    pos = torch.arange(n, device=ids.device)
+    new_run = torch.ones(n, dtype=torch.bool, device=ids.device)
+    new_run[1:] = ids[1:] != ids[:-1]
+    last = torch.ones_like(new_run)
+    last[:-1] = new_run[1:]
+    start = torch.cummax(torch.where(new_run, pos, 0), 0).values
+    end = torch.cummin(torch.where(last, pos, n).flip(0), 0).values.flip(0)
+    rank = pos - start
+    step = 1
+    while step < n:
+        take = (rank % (2 * step) == 0) & (pos + step <= end)
+        later = torch.cat([acc[step:], acc.new_zeros((step, acc.shape[1]))])
+        acc = torch.where(take[:, None], acc + later, acc)
+        step *= 2
+    rows = torch.arange(n_rows, dtype=ids.dtype, device=ids.device)
+    at = torch.searchsorted(ids, rows).clamp_(max=n - 1)
+    found = ids[at] == rows
+    out = acc.to(dtype).index_select(0, at)
+    return out.masked_fill_(~found[:, None], 0)
+
+
+class _Lookup(torch.autograd.Function):
+    """``table.index_select(0, ids)`` whose backward is
+    :func:`embedding_grad`."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table.detach().index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        return embedding_grad(ids, grad, ctx.rows, ctx.dtype), None
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    x = params["embed"].index_select(0, tokens.reshape(-1))
+    x = _Lookup.apply(params["embed"], tokens.reshape(-1))
     return x.reshape(*tokens.shape, -1).to(torch_dtype(cfg.dtype))
 
 

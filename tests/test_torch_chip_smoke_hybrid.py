@@ -78,33 +78,57 @@ ptxas info    : Compiling entry function '_Z22flash_attention_kernelIfLi32EE' fo
     0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 48 registers, used 1 barriers
 """
+# the gmm library's wgmma kernels (forward and dX, decode, dW) and a
+# CUDA-core one, by the names their mangled symbols hold
+GMM_KERNELS = ("_Z2tc16gmm_wgmma_kernelILi2ELi1EE",
+               "_Z3dec17gmm_decode_kernelILi8EE", "_Z2dw13gmm_dw_kernelE")
+GMM_LOG = "".join(
+    f"""ptxas info    : Compiling entry function '{k}' for 'sm_90a'
+    0 bytes stack frame, {{spill}} bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+""" for k in GMM_KERNELS) + """ptxas info    : Compiling entry function '_Z14gmm_f32_kernelPKf' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+"""
 
 
-@pytest.mark.parametrize("spill,hgmma,ok", [(0, 3, True), (16, 3, False),
-                                            (0, 0, False)],
-                         ids=["clean", "spills", "no_wgmma"])
+@pytest.mark.parametrize("spill,hgmma,drop,ok", [
+    (0, 3, None, True), (16, 3, None, False), (0, 0, None, False),
+    (0, 3, "gmm_dw_kernel", False)],
+    ids=["clean", "spills", "no_wgmma", "missing_kernel"])
 def test_tensor_core_report_gates_on_spills_and_wgmma(tmp_path, spill, hgmma,
-                                                      ok):
-    """Phase 2's report: a tensor-core kernel that spills, or a library
-    without wgmma in its SASS, fails; a CUDA-core kernel's spills do not
-    count."""
+                                                      drop, ok):
+    """Phase 2's report: a tensor-core kernel that spills, a wgmma kernel
+    without wgmma in its SASS, or a gmm wgmma kernel (forward and dX,
+    decode, dW) missing from ptxas's report fails; a CUDA-core kernel's
+    spills do not count."""
+    head = "ptxas info    : Compiling"
+    gmm_log = "".join(head + e for e in GMM_LOG.split(head)[1:]
+                      if drop is None or drop not in e)
+
     class Build:
         @staticmethod
         def library_path(name):
             lib = tmp_path / f"lib{name}.so"
-            lib.with_suffix(".log").write_text(PTXAS_LOG.format(spill=spill))
+            log = PTXAS_LOG if name == "flash_attention" else gmm_log
+            lib.with_suffix(".log").write_text(log.format(spill=spill))
             return lib
 
         @staticmethod
         def _nvcc():
             return "/toolkit/bin/nvcc"
 
-    sass = "\n".join(["HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ"] * hgmma)
+    hgmma_lines = ["  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ"] * hgmma
+    sass = {"flash_attention": ["Function : _Z2tc18flash_wgmma_kernelILi128EE",
+                                *hgmma_lines],
+            "moe_gmm": [line for k in GMM_KERNELS
+                        for line in (f"Function : {k}", *hgmma_lines)]}
     lines, tools = [], set()
 
     def run(cmd, **_):
         tools.add(cmd[0])
-        return type("R", (), {"stdout": sass})()
+        name = Path(cmd[-1]).stem[3:]
+        return type("R", (), {"stdout": "\n".join(sass[name])})()
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(chip_smoke, "log", lines.append)
@@ -114,7 +138,9 @@ def test_tensor_core_report_gates_on_spills_and_wgmma(tmp_path, spill, hgmma,
             # cuobjdump from the toolkit whose nvcc built the libraries
             assert tools == {"/toolkit/bin/cuobjdump"}
             assert any("134 registers, 0 bytes spill" in ln for ln in lines)
-            assert any(f"{hgmma} wgmma (HGMMA)" in ln for ln in lines)
+            assert any(f"{{'wgmma_kernel': {hgmma}, 'gmm_decode_kernel': "
+                       f"{hgmma}, 'gmm_dw_kernel': {hgmma}}}" in ln
+                       for ln in lines)
         else:
             with pytest.raises(RuntimeError):
                 chip_smoke.tensor_core_report(Build)

@@ -2,9 +2,10 @@
 
 The script refuses to run without a card, so each part takes a device
 (and phase 14b its run's size); the control flow and every gate (the
-gmm backward against autograd through gmm_ref, the launcher's clean and
-failed runs, the eval step's flash launches, the MoE launch count and the
-card-vs-CPU step) run here first.  The CPU path launches no kernel, so
+gmm backward against autograd through gmm_ref and against itself bit for
+bit, the launcher's clean and failed runs, bit for bit, the eval step's
+flash launches, the MoE launch count and the card-vs-CPU step) run here
+first.  The CPU path launches no kernel, so
 each plain-version call of a wrapper is counted as its launch through the
 same counter the wrappers use.  Timings need the card and are skipped.
 """
@@ -36,6 +37,14 @@ def _counted_product(x, w):
     return gmm_ops.gmm_ref(x, w)
 
 
+def _counted_grad(which, x, w, dy):
+    if which == gmm_ops._DX:
+        count_launch(gmm_ops.gmm, "dx_f32")
+        return gmm_ops.gmm_dx_ref(dy, w)
+    count_launch(gmm_ops.gmm, "dw_f32")
+    return gmm_ops.gmm_dw_ref(x, dy)
+
+
 @pytest.fixture
 def patched():
     lines = []
@@ -44,6 +53,7 @@ def patched():
         mp.setattr(torch.cuda, "synchronize", lambda *a: None)
         mp.setattr(attention_mod, "flash_attention", _counted_flash)
         mp.setattr(gmm_ops, "_product", _counted_product)
+        mp.setattr(gmm_ops, "_grad", _counted_grad)
         yield mp, lines
 
 
@@ -51,9 +61,50 @@ def test_gmm_backward_part_runs_on_cpu(patched):
     _, lines = patched
     out = chip_smoke.phase_gmm_backward(torch, device="cpu", cases=TOY_GMM,
                                         timed=False)
-    assert out["rel"] <= chip_smoke.GMM_NORM_TOL["bfloat16"]
-    assert out["worst"] <= 1.0
-    assert sum("[train] gmm backward" in ln for ln in lines) == 2
+    assert [r["case"] for r in out] == TOY_GMM
+    for r, (*_, name) in zip(out, TOY_GMM):
+        assert r["rel"] <= chip_smoke.GMM_NORM_TOL[name]
+        assert r["worst"] <= 1.0 and r["repeats"]
+    assert out[0]["paths"] == ("dx_wgmma", "dw_wgmma")
+    assert out[1]["paths"] == ("dx_f32", "dw_f32")
+    assert sum("[train] gmm backward" in ln and "equal bit for bit" in ln
+               for ln in lines) == 2
+
+
+def test_gmm_backward_gate_catches_a_backward_that_does_not_repeat(patched):
+    """A backward whose second call differs in one element by one ulp
+    (as a sum in a run-dependent order would) fails the repeat gate,
+    though both calls are within the tolerance of autograd."""
+    mp, _ = patched
+    good = gmm_ops.GroupedMatmul.backward
+    calls = []
+
+    def drifting(ctx, dy):
+        dx, dw = good(ctx, dy)
+        calls.append(1)
+        if len(calls) == 2:
+            dw = dw.clone()
+            dw.view(-1)[0] = torch.nextafter(dw.view(-1)[0],
+                                             torch.tensor(float("inf"),
+                                                          dtype=dw.dtype))
+        return dx, dw
+    mp.setattr(gmm_ops.GroupedMatmul, "backward", staticmethod(drifting))
+    with pytest.raises(RuntimeError, match="two backward calls .* differ"):
+        chip_smoke.phase_gmm_backward(torch, device="cpu", cases=TOY_GMM,
+                                      timed=False)
+
+
+def test_gmm_grad_bound_counts_each_product():
+    """dX reads dY and W and writes dX, dW reads X and dY and writes dW;
+    together the two, each 2 E C D F flops; bf16 at dbrx-132b's prefill
+    shape is bound by bytes (1.3344 ms, PERF.md)."""
+    x = torch.empty(16, 224, 6144, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(16, 6144, 10752, dtype=torch.bfloat16, device="meta")
+    both, by = chip_smoke.gmm_grad_bound_ms(x, w)
+    dx, _ = chip_smoke.gmm_grad_bound_ms(x, w, ("dx",))
+    dw, _ = chip_smoke.gmm_grad_bound_ms(x, w, ("dw",))
+    assert by == "bytes" and abs(both - 1.3344) < 1e-3
+    assert abs(dx + dw - both) < 1e-9 and abs(dx - dw) < 1e-9
 
 
 def test_gmm_backward_gate_catches_a_wrong_gradient(patched):
@@ -78,6 +129,8 @@ def test_train_phase_runs_on_cpu(patched, tmp_path):
     assert "[train] [loop] restored step 4" in text
     assert "injected node failure at step 5" in text
     assert out["replay"] == 0.0 and out["n_equal"] == TOY_RUN["steps"]
+    assert out["params_equal"] and out["n_leaves"] > 0
+    assert "final params equal bit for bit" in text
     assert out["eval_launches"] == 3 and out["eval_rel"] <= 1e-6
     assert out["eval_flash_err"] == 0.0
     assert out["tokens_per_s"] > 0 and out["peak_gb"] == 0.0
@@ -93,6 +146,26 @@ def test_train_phase_gates_on_the_restore(patched, tmp_path):
     from repro_torch.checkpoint import Checkpointer
     mp.setattr(Checkpointer, "latest_step", lambda self: None)
     with pytest.raises(RuntimeError, match="did not restore step 4"):
+        chip_smoke.phase_train(torch, device="cpu", reduced=True,
+                               run=TOY_RUN, ckpt_root=tmp_path / "ck",
+                               min_fall=0.02)
+
+
+def test_train_phase_gates_a_replay_off_by_an_ulp(patched, tmp_path):
+    """A restore that moves one param leaf by one ulp replays well within
+    the 2e-3 tolerance but not bit for bit: the bitwise gate fails it."""
+    mp, _ = patched
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim.adamw import tree_leaves
+    good = Checkpointer.restore
+
+    def nudged(self, like, step=None):
+        start, state = good(self, like, step)
+        leaf = tree_leaves(state.params)[-1]
+        leaf.copy_(torch.nextafter(leaf, torch.full_like(leaf, 1e30)))
+        return start, state
+    mp.setattr(Checkpointer, "restore", nudged)
+    with pytest.raises(RuntimeError, match="not the clean run bit for bit"):
         chip_smoke.phase_train(torch, device="cpu", reduced=True,
                                run=TOY_RUN, ckpt_root=tmp_path / "ck",
                                min_fall=0.02)
@@ -128,15 +201,14 @@ def test_moe_train_phase_runs_on_cpu(patched):
 
 
 def test_moe_train_phase_gates_on_the_launch_count(patched):
-    """A backward that did not run through the kernel (no launch counted
-    while autograd runs it) fails the count."""
+    """A backward that did not run through the kernel (its products left
+    to the plain versions, no launch counted) fails the count."""
     mp, _ = patched
 
-    def forward_only(x, w):
-        if torch.is_grad_enabled():
-            count_launch(gmm_ops.gmm, "f32")
-        return gmm_ops.gmm_ref(x, w)
-    mp.setattr(gmm_ops, "_product", forward_only)
+    def plain_grad(which, x, w, dy):
+        return gmm_ops.gmm_dx_ref(dy, w) if which == gmm_ops._DX \
+            else gmm_ops.gmm_dw_ref(x, dy)
+    mp.setattr(gmm_ops, "_grad", plain_grad)
     with pytest.raises(RuntimeError, match="moe_gmm launched"):
         chip_smoke.phase_moe_train(torch, device="cpu")
 

@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
-from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+from repro_torch.kernels.moe_gmm import gmm, gmm_dw_ref, gmm_dx_ref, gmm_ref
 from repro_torch.kernels.ssd import ssd_chunked, ssd_scan
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -808,24 +808,169 @@ def test_gmm_wgmma_path_at_dbrx_prefill_shapes(cuda_device, e, c, d, f):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,c,d,f,path", [
-    (torch.bfloat16, 8, 6144, 10752, "decode"),
-    (torch.bfloat16, 16, 256, 136, "decode"),
-    (torch.bfloat16, 17, 100, 72, "wmma"),
-    (torch.bfloat16, 40, 96, 130, "wmma"),
-    (torch.bfloat16, 17, 96, 256, "wgmma"),
-    (torch.float32, 224, 128, 64, "f32"),
-], ids=["decode", "decode_edge", "wmma_d100", "wmma_f130", "wgmma", "f32"])
+@pytest.mark.parametrize("dtype,c,d,f,which,path", [
+    (torch.bfloat16, 8, 6144, 10752, "fwd", "decode"),
+    (torch.bfloat16, 16, 256, 136, "fwd", "decode"),
+    (torch.bfloat16, 17, 100, 72, "fwd", "wmma"),
+    (torch.bfloat16, 40, 96, 130, "fwd", "wmma"),
+    (torch.bfloat16, 17, 96, 256, "fwd", "wgmma"),
+    (torch.float32, 224, 128, 64, "fwd", "f32"),
+    (torch.bfloat16, 224, 256, 136, "dx", "dx_wgmma"),
+    (torch.bfloat16, 224, 256, 136, "dw", "dw_wgmma"),
+    (torch.bfloat16, 17, 100, 72, "dx", "dx_wmma"),
+    (torch.bfloat16, 17, 100, 72, "dw", "dw_wmma"),
+    (torch.float32, 224, 128, 64, "dx", "dx_f32"),
+    (torch.float32, 224, 128, 64, "dw", "dw_f32"),
+], ids=["decode", "decode_edge", "wmma_d100", "wmma_f130", "wgmma", "f32",
+        "dx_wgmma", "dw_wgmma", "dx_wmma", "dw_wmma", "dx_f32", "dw_f32"])
 def test_gmm_entry_point_picks_the_path_from_the_shape(cuda_device, dtype, c,
-                                                       d, f, path):
+                                                       d, f, which, path):
+    """The forward's path, or the path of the one backward product asked
+    for (only x or only w requiring a gradient), read from
+    ``gmm.launches_by_path``."""
     x, w = _gmm_inputs(2, c, d, f, dtype, cuda_device)
-    before = dict(gmm.launches_by_path)
-    got = gmm(x, w)
+    if which == "fwd":
+        before = dict(gmm.launches_by_path)
+        got, want = gmm(x, w), gmm_ref(x, w)
+    else:
+        dy = torch.randn(2, c, f, device=cuda_device).to(dtype)
+        xg, wg = x.clone().requires_grad_(which == "dx"), \
+            w.clone().requires_grad_(which == "dw")
+        out = gmm(xg, wg)
+        before = dict(gmm.launches_by_path)
+        out.backward(dy)
+        got = xg.grad if which == "dx" else wg.grad
+        want = gmm_dx_ref(dy, w) if which == "dx" else gmm_dw_ref(x, dy)
     torch.cuda.synchronize()
     assert {k: n - before[k] for k, n in gmm.launches_by_path.items()} == {
         k: int(k == path) for k in before}
-    torch.testing.assert_close(got.float(), gmm_ref(x, w).float(),
-                               **GMM_TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [
+    (16, 8, 6144, 10752), (16, 8, 10752, 6144), (16, 16, 6144, 10752),
+    (3, 1, 6144, 200), (2, 5, 64, 136), (4, 9, 512, 8), (1, 12, 8, 1000),
+], ids=["gate_up", "down", "cap16", "c1_f200", "c5", "f8", "d8"])
+def test_gmm_decode_path_at_dbrx_and_ragged_shapes(cuda_device, e, c, d, f):
+    """The decode path (w^T x^T on wgmma n8 / n16) at dbrx-132b's decode
+    shapes and at capacities, depths and widths no tile divides: every
+    call on the decode path, elementwise and normwise against gmm_ref,
+    bit for bit the same on a second call."""
+    x, w = _gmm_inputs(e, c, d, f, torch.bfloat16, cuda_device, seed=c)
+    before = gmm.launches_by_path["decode"]
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches_by_path["decode"] == before + 1
+    want = gmm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **GMM_TOL[torch.bfloat16])
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel < 1e-2
+    assert torch.equal(got, gmm(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f,dtype", [
+    (16, 224, 6144, 10752, torch.bfloat16),
+    (16, 224, 10752, 6144, torch.bfloat16),
+    (2, 1, 6144, 256, torch.bfloat16),
+    (2, 17, 100, 130, torch.bfloat16),
+    (3, 300, 256, 136, torch.bfloat16),
+    (2, 513, 136, 72, torch.bfloat16),
+    (4, 96, 520, 264, torch.bfloat16),
+    (16, 40, 1024, 1536, torch.float32),
+    (2, 17, 100, 130, torch.float32),
+], ids=["dbrx_gate_up", "dbrx_down", "c1", "d100_f130", "c300_two_passes",
+        "c513_three_passes", "ragged_tiles", "f32", "f32_ragged"])
+def test_gmm_backward_paths_match_plain_versions(cuda_device, e, c, d, f,
+                                                 dtype):
+    """dX and dW of each backward path against gmm_dx_ref / gmm_dw_ref on
+    the same card tensors, elementwise and normwise, at dbrx-132b's
+    prefill shapes and at ragged ones: C 1, 17, 300 and 513 (X^T brought
+    in two and three passes), D 100 and F 130 (no TMA), tiles no 256 x
+    128 divides; and a second backward equals the first bit for bit."""
+    x, w = _gmm_inputs(e, c, d, f, dtype, cuda_device, seed=c)
+    dy = torch.randn(e, c, f, device=cuda_device).to(dtype)
+    grads = []
+    for _ in range(2):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        gmm(xg, wg).backward(dy)
+        grads.append((xg.grad, wg.grad))
+    torch.cuda.synchronize()
+    tol = GMM_TOL[dtype]
+    norm = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want in zip(grads[0], (gmm_dx_ref(dy, w), gmm_dw_ref(x, dy))):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert rel < norm
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_embedding_backward_repeats_bit_for_bit_at_qwen2_vocab(cuda_device):
+    """The embedding's backward at qwen2-0.5b's vocab (151,936 x 896, bf16)
+    on a microbatch of 2,048 ids, 300 of them one id: two calls equal bit
+    for bit, and equal the CPU's on the same inputs (the same f32 sums in
+    the same order)."""
+    from repro_torch.models.transformer import embedding_grad
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 151936, (2048,), generator=gen)
+    ids[::7] = 11
+    grad = torch.randn(2048, 896, generator=gen).to(torch.bfloat16)
+    cpu = embedding_grad(ids, grad, 151936, torch.bfloat16)
+    on_card = [embedding_grad(ids.to(cuda_device), grad.to(cuda_device),
+                              151936, torch.bfloat16) for _ in range(2)]
+    assert torch.equal(on_card[0], on_card[1])
+    assert torch.equal(on_card[0].cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_qwen2_train_step_grads_repeat_bit_for_bit(cuda_device):
+    """A reduced qwen2-0.5b step's gradients, taken twice on the card from
+    the same params and batch, are equal bit for bit in every leaf.  Then
+    once more with PyTorch's deterministic algorithms switched on for the
+    call (and back off after it): no op of the step is flagged as having
+    no deterministic implementation, and the gradients with PyTorch's
+    deterministic alternatives swapped in (the gather's backward among
+    them) equal the default ones bit for bit, so every op the step runs
+    by default is deterministic as the step uses it."""
+    import warnings
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.lm import LMDataConfig, make_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.step import make_train_step
+    cfg = reduced_config("qwen2-0.5b")
+    bundle = build_model(cfg)
+    params = bundle.init(0, cuda_device)
+    batch = batch_to_device(make_batch(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=8), 0),
+        cuda_device)
+    step, _ = make_train_step(bundle)
+    runs = [step.grads(params, batch) for _ in range(2)]
+    was = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs.append(step.grads(params, batch))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(was)
+    flagged = sorted({str(w_.message) for w_ in seen
+                      if "deterministic" in str(w_.message)})
+    assert not flagged, flagged
+    (met_a, ga), *others = runs
+    for met_b, gb in others:
+        assert float(met_a["loss"]) == float(met_b["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ga),
+                                                     tree_leaves(gb)))
 
 
 @pytest.mark.cuda
@@ -970,9 +1115,10 @@ def test_search_and_serve_winner_on_the_card(cuda_device, monkeypatch):
                                      (2, 17, 96, 136), (16, 40, 512, 384)])
 def test_gmm_backward_runs_the_kernel(cuda_device, e, c, d, f, dtype):
     """gmm under autograd on the card: its output has the Function's
-    grad_fn, the backward launches the kernel twice (dX and dW on the
-    transposes), and both gradients equal autograd through gmm_ref on the
-    same tensors at the reference's tolerances (f32 1e-4, bf16 5e-2)."""
+    grad_fn, the backward launches the kernels twice (dX and dW on the
+    operands as they lie), and both gradients equal autograd through
+    gmm_ref on the same tensors at the reference's tolerances (f32 1e-4,
+    bf16 5e-2)."""
     x, w = _gmm_inputs(e, c, d, f, dtype, cuda_device)
     dy = torch.randn(e, c, f, device=cuda_device).to(dtype)
     xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)

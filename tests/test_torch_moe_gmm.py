@@ -1,13 +1,16 @@
 """Port grouped matmul vs the reference (CPU): the plain version and the
 wrapper's CPU path against the reference's Pallas kernel (interpret mode,
 with the small blocks its own tests use) and its oracle, ragged sizes no
-block divides, and the wrapper's refusals.
+block divides, and the wrapper's refusals; the plain gradient products
+(``gmm_dx_ref``, ``gmm_dw_ref``) against ``jax.vjp`` of the reference's
+oracle, and the backward's repeatability.
 
 Tolerances are the reference's own (tests/test_kernels.py): 1e-4 in f32
 (both sides accumulate in f32, in different orders) and 5e-2 in bf16 (the
 single output rounding can land on either side).  The CUDA kernel needs
 the card; its on-card checks are in tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ import torch
 
 from repro.kernels.moe_gmm.ops import gmm as jax_gmm
 from repro.kernels.moe_gmm.ref import gmm_ref as jax_gmm_ref
-from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+from repro_torch.kernels.moe_gmm import gmm, gmm_dw_ref, gmm_dx_ref, gmm_ref
 from torch_parity import np_of
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -95,8 +98,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_grads_through_the_function_equal_einsum_autograd(e, c, d, f,
                                                           dtype):
-    """dX and dW through the op's autograd Function (two more grouped
-    matmuls, on the transposes) against autograd through gmm_ref's einsum,
+    """dX and dW through the op's autograd Function (the two plain gradient
+    products on the CPU) against autograd through gmm_ref's einsum,
     to 1e-5 (bf16: the same roundings on both sides); ``out.grad_fn`` is
     the Function's."""
     from repro_torch.kernels.moe_gmm.ops import GroupedMatmul
@@ -130,3 +133,47 @@ def test_backward_takes_only_the_grads_it_needs():
     assert wg.grad is not None
     with torch.no_grad():
         assert gmm(xg, wg).grad_fn is None
+
+
+# the reference tests' shapes and ragged ones: C 1 and 17, D 100 and 6, F 130
+BWD_SHAPES = [(4, 32, 64, 48), (8, 16, 128, 64), (2, 64, 32, 32),
+              (3, 1, 100, 72), (2, 17, 100, 130), (1, 17, 6, 130)]
+
+
+@pytest.mark.parametrize("e,c,d,f", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_grads_match_jax_vjp(e, c, d, f, dtype):
+    """dX = dY W^T and dW = X^T dY of the plain versions against the
+    cotangents ``jax.vjp`` of the reference's ``gmm_ref`` gives for the
+    same dY, at the reference's tolerances (both sides sum in f32 and
+    round once)."""
+    (tx, tw), (jx, jw) = _inputs(e, c, d, f, dtype, seed=4)
+    dy = np.random.default_rng(5).normal(size=(e, c, f)).astype(np.float32)
+    tdt, jdt = DTYPES[dtype]
+    tdy, jdy = torch.from_numpy(dy).to(tdt), jnp.asarray(dy, jdt)
+    _, vjp = jax.vjp(jax_gmm_ref, jx, jw)
+    want_dx, want_dw = vjp(jdy)
+    got_dx, got_dw = gmm_dx_ref(tdy, tw), gmm_dw_ref(tx, tdy)
+    assert got_dx.dtype == got_dw.dtype == tdt
+    assert tuple(got_dx.shape) == (e, c, d)
+    assert tuple(got_dw.shape) == (e, d, f)
+    _close(got_dx, want_dx, dtype)
+    _close(got_dw, want_dw, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_backward_repeats_bit_for_bit(dtype):
+    """Two backward passes on the same operands and dY give equal dX and
+    dW bit for bit, and equal the plain products called directly."""
+    (x, w), _ = _inputs(3, 17, 100, 130, dtype, seed=6)
+    dy = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(3, 17, 130)).astype(np.float32)).to(x.dtype)
+    grads = []
+    for _ in range(2):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        gmm(xg, wg).backward(dy)
+        grads.append((xg.grad, wg.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert torch.equal(grads[0][0], gmm_dx_ref(dy, w))
+    assert torch.equal(grads[0][1], gmm_dw_ref(x, dy))
