@@ -1,9 +1,8 @@
 """Config registry: ``get_config(arch_id)`` + reduced smoke variants.
 
-Mirrors ``repro/configs/__init__.py``.  Every arch id of the reference is
-known here, but only the families this port serves (dense, MoE, SSM and
-hybrid) have a config module; the others raise ``NotImplementedError``
-until their slice lands.
+Mirrors ``repro/configs/__init__.py``: every arch id of the reference has
+a config module here (its copy), as do the shape cells (``shapes.py``)
+and HALF's own search-space defaults (``half_ecg.py``).
 """
 from __future__ import annotations
 
@@ -27,16 +26,11 @@ ARCH_MODULES: Dict[str, str] = {
 }
 
 ALL_ARCHS: List[str] = list(ARCH_MODULES)
-PORTED_ARCHS: List[str] = ["qwen2-0.5b", "qwen3-4b", "dbrx-132b",
-                            "kimi-k2-1t-a32b", "mamba2-780m", "zamba2-7b"]
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ALL_ARCHS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not yet ported (ported: {PORTED_ARCHS})")
     mod = importlib.import_module(
         f"repro_torch.configs.{ARCH_MODULES[arch]}")
     return mod.CONFIG

@@ -1,46 +1,57 @@
-// Causal GQA flash attention (forward, prefill) for Hopper (sm_90a).
+// GQA flash attention (forward), causal or not, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py:71 flash_attention_pallas
-//   (pallas_call at :95, body _kernel at :28-68),
-// used with causal=True over a full sequence, the product
-// attention_prefill needs (src/repro/models/attention.py runs it as
+//   (pallas_call at :95, body _kernel at :28-68)
+// with both values of its causal flag and any Sq and Sk: causal over a
+// full sequence is the product attention_prefill needs; non-causal, the
+// encoder's self-attention and the cross-attention of an encoder-decoder
+// (src/repro/models/attention.py and encdec.py run both as
 // chunked_attention).
 //
-//   q    (B, S, H, hd)    f32 or bf16
-//   k, v (B, S, KVH, hd)  q's dtype; head h reads KV head h / (H / KVH)
-//   out  (B, S, H, hd)    q's dtype
-// Query i attends to keys 0..i.  q's 1/sqrt(hd) is applied in f32 (to the
-// scores on the tensor-core path, to q on the CUDA-core one, never to a
-// rounded q); scores, the online softmax and the sums are f32.
+//   q    (B, Sq, H, hd)    f32 or bf16
+//   k, v (B, Sk, KVH, hd)  q's dtype; head h reads KV head h / (H / KVH)
+//   out  (B, Sq, H, hd)    q's dtype
+// Causal: query i attends to keys 0..i (the top-left mask of the
+// reference's attention_ref, also where Sq != Sk); non-causal: to keys
+// 0..Sk-1.  q's 1/sqrt(hd) is applied in f32 (to the scores on the
+// tensor-core path, to q on the CUDA-core one, never to a rounded q);
+// scores, the online softmax and the sums are f32.
 //
 // The TPU kernel walks a sequential grid axis over KV blocks with the
 // running max, denominator and accumulator in VMEM scratch, and skips the
 // blocks above the diagonal with pl.when.  Blocks on this card run in no
 // order, so one thread block owns 64 query rows of one (b, h) and loops
-// over the KV tiles itself, only up to the diagonal (the causal skip).
-// The blocks with the longest row ranges start first.
+// over the KV tiles itself: causal, only up to the diagonal (the causal
+// skip), the blocks with the longest row ranges starting first;
+// non-causal, over all ceil(Sk / tile) tiles.  The keys at or past Sk in
+// the last tile are masked on both paths (TMA zero-fills those rows,
+// which would otherwise score 0 rather than -inf).
 //
-// What bounds it: operations.  A call does 4 hd flops per (query, key)
-// pair on or below the diagonal, about 2 S^2 hd H in all, against
-// 2 S hd (H + 2 KVH) elements moved: at S 700, hd 128 hundreds of flops a
-// byte, so the products belong on the tensor cores.
+// What bounds it: operations, at a prefill's shapes.  A call does 4 hd
+// flops per (query, key) pair it attends, about 2 S^2 hd H in all for a
+// causal S (4 Sq Sk hd H non-causal), against (Sq H + 2 Sk KVH) hd
+// elements read and Sq H hd written: at S 700, hd 128 hundreds of flops a
+// byte, so the products belong on the tensor cores.  A few queries
+// against many keys (cross-attention of a 4-token decoder prompt over an
+// encoder's 1,500 frames) is bound by its bytes instead.
 //
 // bf16 (the served models' path): the tensor cores, FlashAttention-3's
 // shape (hopper.cuh has the layouts).  A block is one consumer warpgroup
 // (warps 0-3) and one producer warp (warp 4).  The producer's one thread
 // loads Q once and keeps K/V tiles of 64 keys in flight by TMA, in a ring
 // of two stages with full (K and V apart) and empty mbarriers; TMA
-// zero-fills rows past S and columns past hd, so ragged S needs no
-// padding and hd 32 and 112 are carried as 64 and 128 columns of which
-// the zeros add nothing (the Q K^T product runs ceil(hd / 16) k-steps:
+// zero-fills rows past Sq or Sk and columns past hd, so ragged lengths
+// need no padding and hd 32 and 112 are carried as 64 and 128 columns of
+// which the zeros add nothing (the Q K^T product runs ceil(hd / 16) k-steps:
 // seven at hd 112).  The consumer runs S = Q K^T with wgmma m64n64k16 (Q
 // and K from shared memory, both K-major), the online softmax on the f32
 // accumulator in registers (row max and the exp2 of the scaled scores;
 // the four lanes of a row combine with two shuffles), converts P to bf16
 // in registers and feeds it as the A operand of O += P V (wgmma
 // m64n{hd}k16, V the MN-major B operand through the descriptor's
-// transpose bit).  Only the diagonal tile is masked; tiles above it are
+// transpose bit).  Only the last tile a block reads is masked (causal: at
+// the diagonal; both: the keys past Sk); tiles above the diagonal are
 // never loaded.  P rounded to bf16 adds about 2^-9 relative error to each
 // weight, averaged over the keys (the denominator sums the f32 weights).
 // GQA: the heads of one KV group read the same K/V tiles; the grid puts
@@ -92,8 +103,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int S, int H, int KVH,
-                           float scale) {
+                           float* __restrict__ out, int Sq, int Sk, int H,
+                           int KVH, float scale, int causal) {
   constexpr int LD = HD + 1;
   constexpr int DPT = HD / 16;  // output dims a thread owns
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
@@ -110,15 +121,15 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const size_t q_row = static_cast<size_t>(H) * HD;     // position stride
   const size_t kv_row = static_cast<size_t>(KVH) * HD;
-  const float* qb = q + static_cast<size_t>(b) * S * q_row + h * HD;
-  const float* kb = k + static_cast<size_t>(b) * S * kv_row + g * HD;
-  const float* vb = v + static_cast<size_t>(b) * S * kv_row + g * HD;
+  const float* qb = q + static_cast<size_t>(b) * Sq * q_row + h * HD;
+  const float* kb = k + static_cast<size_t>(b) * Sk * kv_row + g * HD;
+  const float* vb = v + static_cast<size_t>(b) * Sk * kv_row + g * HD;
 
   for (int i = threadIdx.x; i < kBQ * HD; i += kThreads) {
     const int r = i / HD;
     const int d = i % HD;
     const int qi = q0 + r;
-    sq[r * LD + d] = qi < S ? qb[qi * q_row + d] * scale : 0.f;
+    sq[r * LD + d] = qi < Sq ? qb[qi * q_row + d] * scale : 0.f;
   }
 
   float m[kRows], l[kRows], o[kRows][DPT];
@@ -130,14 +141,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < DPT; ++c) o[i][c] = 0.f;
   }
 
-  const int kv_end = min(q0 + kBQ, S);  // keys any row of the tile sees
+  // keys any row of the tile sees
+  const int kv_end = causal ? min(q0 + kBQ, Sk) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // Q stored; the previous tile's V reads done
     for (int i = threadIdx.x; i < kBK * HD; i += kThreads) {
       const int c = i / HD;
       const int d = i % HD;
       const int kj = k0 + c;
-      skv[c * LD + d] = kj < S ? kb[kj * kv_row + d] : 0.f;
+      skv[c * LD + d] = kj < Sk ? kb[kj * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -171,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
         const int kj = k0 + tx + 16 * j;
-        if (kj >= S || kj > qi) s[i][j] = -INFINITY;
+        if (kj >= Sk || (causal && kj > qi)) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -206,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = i / HD;
       const int d = i % HD;
       const int kj = k0 + c;
-      skv[c * LD + d] = kj < S ? vb[kj * kv_row + d] : 0.f;
+      skv[c * LD + d] = kj < Sk ? vb[kj * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -224,11 +236,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float* ob = out + static_cast<size_t>(b) * S * q_row + h * HD;
+  float* ob = out + static_cast<size_t>(b) * Sq * q_row + h * HD;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + 16 * i;
-    if (qi < S) {
+    if (qi < Sq) {
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int dd = 0; dd < DPT; ++dd) {
@@ -254,32 +266,37 @@ cudaError_t configure() {
   return err;
 }
 
+// The shape of one call, as the C entry point takes it.
+struct Shape {
+  int B, Sq, Sk, H, KVH, causal;
+};
+
 template <int HD>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int H, int KVH, cudaStream_t stream) {
+cudaError_t launch_f32_hd(const void* q, const void* k, const void* v,
+                          void* out, const Shape& sh, cudaStream_t stream) {
   const cudaError_t err = configure<HD>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((sh.Sq + kBQ - 1) / kBQ, sh.H, sh.B);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   flash_attention_kernel<HD><<<grid, kThreads, smem_bytes<HD>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, KVH,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(out), sh.Sq, sh.Sk,
+      sh.H, sh.KVH, scale, sh.causal);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int KVH, int hd,
+                       void* out, const Shape& sh, int hd,
                        cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_hd<32>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_f32_hd<32>(q, k, v, out, sh, stream);
     case 64:
-      return launch_hd<64>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_f32_hd<64>(q, k, v, out, sh, stream);
     case 112:
-      return launch_hd<112>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_f32_hd<112>(q, k, v, out, sh, stream);
     case 128:
-      return launch_hd<128>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_f32_hd<128>(q, k, v, out, sh, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -323,8 +340,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       bf16* __restrict__ out, int S, int H, int KVH,
-                       float scale_log2) {
+                       bf16* __restrict__ out, int Sq, int Sk, int H,
+                       int KVH, float scale_log2, int causal) {
   using C = Cfg<HD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -341,7 +358,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = blockIdx.z;
   const int g = h / (H / KVH);
   const int q0 = qt * kBQ;
-  const int n_tiles = qt + 1;                  // key tiles up to the diagonal
+  // key tiles: up to the diagonal (causal), all of them (non-causal)
+  const int nk = (Sk + kBK - 1) / kBK;
+  const int n_tiles = causal ? min(qt + 1, nk) : nk;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -419,14 +438,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
 
-    // mask the diagonal tile (key c > query r: the tile's k0 equals q0),
-    // then the online softmax over the tile, in f32
+    // mask the last tile: keys past Sk (zero-filled by TMA), and, causal,
+    // keys past the query (that tile is the diagonal one, or one wholly
+    // below it), then the online softmax over the tile, in f32
+    const bool last = t == n_tiles - 1;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int row = r + 8 * ((i / 2) % 2);
-      const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-      if (t == qt && col > row) sc[i] = -INFINITY;
+      const int row = q0 + r + 8 * ((i / 2) % 2);
+      const int key = t * kBK + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      if (last && (key >= Sk || (causal && key > row))) sc[i] = -INFINITY;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
     }
     float base[2];
@@ -487,11 +508,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     inv[j] = 1.f / l[j];
   }
   const size_t q_row = static_cast<size_t>(H) * HD;
-  bf16* ob = out + static_cast<size_t>(b) * S * q_row + h * HD;
+  bf16* ob = out + static_cast<size_t>(b) * Sq * q_row + h * HD;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int qi = q0 + r + 8 * j;
-    if (qi < S) {
+    if (qi < Sq) {
       uint32_t* orow = reinterpret_cast<uint32_t*>(ob + qi * q_row);
 #pragma unroll
       for (int c = 0; c < HD / 8; ++c) {
@@ -530,35 +551,36 @@ bool encode(CUtensorMap* map, const void* base, int B, int S, int heads,
 
 template <int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int H, int KVH, cudaStream_t stream) {
-  static_assert(kBQ == kBK, "the diagonal tile's keys start at q0");
+                      const Shape& sh, cudaStream_t stream) {
+  static_assert(kBQ == kBK, "query tile qt's diagonal is key tile qt");
   const cudaError_t err = configure<HD>();
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap;
-  if (!encode(&qmap, q, B, S, H, HD) || !encode(&kmap, k, B, S, KVH, HD) ||
-      !encode(&vmap, v, B, S, KVH, HD)) {
+  if (!encode(&qmap, q, sh.B, sh.Sq, sh.H, HD) ||
+      !encode(&kmap, k, sh.B, sh.Sk, sh.KVH, HD) ||
+      !encode(&vmap, v, sh.B, sh.Sk, sh.KVH, HD)) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(H, (S + kBQ - 1) / kBQ, B);
+  const dim3 grid(sh.H, (sh.Sq + kBQ - 1) / kBQ, sh.B);
   const float scale_log2 = static_cast<float>(
       1.4426950408889634 / sqrt(static_cast<double>(HD)));
   flash_wgmma_kernel<HD><<<grid, kThreads, Cfg<HD>::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<bf16*>(out), S, H, KVH, scale_log2);
+      qmap, kmap, vmap, static_cast<bf16*>(out), sh.Sq, sh.Sk, sh.H, sh.KVH,
+      scale_log2, sh.causal);
   return cudaGetLastError();
 }
 
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int KVH, int hd,
-                   cudaStream_t stream) {
+                   const Shape& sh, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_hd<32>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_hd<32>(q, k, v, out, sh, stream);
     case 64:
-      return launch_hd<64>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_hd<64>(q, k, v, out, sh, stream);
     case 112:
-      return launch_hd<112>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_hd<112>(q, k, v, out, sh, stream);
     case 128:
-      return launch_hd<128>(q, k, v, out, B, S, H, KVH, stream);
+      return launch_hd<128>(q, k, v, out, sh, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -572,27 +594,30 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// *path is set before the launch: 0 the CUDA-core kernel (f32), 1 the
-// tensor-core kernel (bf16).  Returns the CUDA error of the launch (0 =
-// cudaSuccess).
+// Plain C entry point for ctypes.  q (B, Sq, H, hd), k and v (B, Sk, KVH,
+// hd); causal: 1 for the top-left causal mask, 0 for none.  dtype: 0 =
+// float32, 1 = bfloat16.  *path is set before the launch: 0 the CUDA-core
+// kernel (f32), 1 the tensor-core kernel (bf16).  Returns the CUDA error
+// of the launch (0 = cudaSuccess).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int H, int KVH, int hd, int dtype,
-                                      void* stream, int* path) {
-  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || H > 65535 ||
-      B > 65535) {
+                                      const void* v, void* out, int B,
+                                      int Sq, int Sk, int H, int KVH, int hd,
+                                      int causal, int dtype, void* stream,
+                                      int* path) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0 ||
+      H > 65535 || B > 65535 || (causal != 0 && causal != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Shape sh{B, Sq, Sk, H, KVH, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     *path = 0;
-    return static_cast<int>(launch_f32(q, k, v, out, B, S, H, KVH, hd, st));
+    return static_cast<int>(launch_f32(q, k, v, out, sh, hd, st));
   }
   if (dtype == 1 && aligned16(q) && aligned16(k) && aligned16(v) &&
       aligned16(out)) {
     *path = 1;
-    return static_cast<int>(tc::launch(q, k, v, out, B, S, H, KVH, hd, st));
+    return static_cast<int>(tc::launch(q, k, v, out, sh, hd, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

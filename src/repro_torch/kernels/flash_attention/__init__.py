@@ -1,4 +1,4 @@
-"""Causal GQA flash attention over a full sequence (prefill)."""
+"""GQA flash attention, causal (prefill) or not (encoder, cross-attention)."""
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 

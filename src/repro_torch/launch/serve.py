@@ -23,6 +23,13 @@ them.
 
 ``--reduced`` (the default) serves the same-family smoke config;
 ``--no-reduced`` serves the published widths in the config's dtype.
+
+The launcher serves token prompts through the slotted path.  It refuses
+the encoder-decoder (whisper-tiny), which has none, with the reference
+launcher's error, and the VLM family (qwen2-vl-2b), whose prompts are
+embeddings at M-RoPE positions: the reference fails there with an
+IndexError in its slotted prefill.  Both families serve through their
+bundle's ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_config, reduced_config
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import check_token_prompts
 from repro_torch.serve.engine import EngineConfig, ServeEngine, ServeRequest
 from repro_torch.serve.router import ReplicaRouter, RouterConfig
 
@@ -166,6 +174,10 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     bundle = build_model(cfg)
+    if bundle.decode_slotted is None:
+        raise ValueError(f"family {cfg.family!r} has no slotted serving "
+                         f"path")
+    check_token_prompts(cfg)
     params = bundle.init(args.seed, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = [ServeRequest(rid=i,

@@ -1,15 +1,19 @@
 """GQA attention: chunked online-softmax reference + KV-cache decode.
 
-Counterpart of ``repro/models/attention.py`` for the dense LM family:
-grouped KV heads (GQA/MQA), qk-norm (qwen3), QKV bias (qwen2) and plain
-RoPE.  Training runs :func:`chunked_attention` in plain PyTorch, as the
-reference runs its jnp path there.  The causal full-sequence product goes
-through ``kernels/flash_attention`` wherever no gradient is taken (prefill,
-an eval step), and every decode path, the engine's slotted and paged steps
-and the scalar step of its oracle, through ``kernels/decode_attention``:
-the hand-written CUDA kernels for CUDA tensors, their plain versions on
-the CPU (and :func:`chunked_attention` under autograd: the flash kernel
-has no backward).
+Counterpart of ``repro/models/attention.py``: grouped KV heads (GQA/MQA),
+qk-norm (qwen3), QKV bias (qwen2), RoPE and M-RoPE (qwen2-vl), and the
+bidirectional self-attention and cross-attention of an encoder-decoder
+(whisper).  Training runs :func:`chunked_attention` in plain PyTorch, as
+the reference runs its jnp path there.  Every full-sequence product,
+causal or not, goes through ``kernels/flash_attention`` wherever no
+gradient is taken (prefill, an encoder's forward, an eval step), and every
+decode path (the engine's slotted and paged steps, the scalar step of its
+oracle, and an encoder-decoder's cross-attention at decode) through
+``kernels/decode_attention``: the hand-written CUDA kernels for CUDA
+tensors, their plain versions on the CPU (and :func:`chunked_attention`
+under autograd: the flash kernel has no backward).  Every kernel call of
+the models goes through this module, so a caller that swaps its
+``flash_attention`` or ``decode_attention`` swaps them everywhere.
 
 Decode writes the new K/V row into the cache or pool *in place* (the
 reference's ``dynamic_update_slice`` and ``.at[].set`` return new arrays);
@@ -29,7 +33,12 @@ from repro_torch.kernels.decode_attention.ops import (
     paged_decode_attention,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.models.common import (
+    apply_mrope,
+    apply_rope,
+    dense_init,
+    rmsnorm,
+)
 
 NEG_INF = -1e30
 
@@ -160,25 +169,40 @@ def chunked_attention(
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+def _project_q(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
     q = (x @ p["q"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ p["k"].to(x.dtype)).reshape(b, s, kvh, hd)
-    v = (x @ p["v"].to(x.dtype)).reshape(b, s, kvh, hd)
     if cfg.qkv_bias:
         q = q + p["q_b"].to(x.dtype).reshape(h, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
+                 kv_src: Optional[torch.Tensor] = None):
+    """q of ``x``; k and v of ``kv_src`` (cross-attention), else of ``x``."""
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    src = x if kv_src is None else kv_src
+    b, sk, _ = src.shape
+    k = (src @ p["k"].to(x.dtype)).reshape(b, sk, kvh, hd)
+    v = (src @ p["v"].to(x.dtype)).reshape(b, sk, kvh, hd)
+    if cfg.qkv_bias:
         k = k + p["k_b"].to(x.dtype).reshape(kvh, hd)
         v = v + p["v_b"].to(x.dtype).reshape(kvh, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return _project_q(p, x, cfg), k, v
 
 
 def _rotate(q, k, positions: torch.Tensor, cfg: ModelConfig):
+    """RoPE at (B, S) positions, or M-RoPE at (3, B, S) ones."""
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not yet ported")
+        return (apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -187,31 +211,81 @@ def _arange_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _decode_positions(at: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One decode step's positions from ``at`` (B,): (B, 1), or for M-RoPE
+    (3, B, 1), each of the three components at ``at``, as the
+    reference's decode paths broadcast their position."""
+    if cfg.mrope:
+        return at[None, :, None].expand(3, -1, 1)
+    return at[:, None]
+
+
+def _grad_taken(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _attend(q, k, v, cfg: ModelConfig, causal: bool) -> torch.Tensor:
+    """A full-sequence product: the flash-attention op where no gradient
+    is taken, ``chunked_attention`` (the reference's function) under
+    autograd, since the flash kernel has no backward."""
+    if _grad_taken(q, k, v):
+        return chunked_attention(q, k, v, causal=causal,
+                                 chunk=cfg.attn_chunk)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal)
+
+
 def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     cfg: ModelConfig, *,
                     positions: Optional[torch.Tensor] = None,
                     causal: bool = True, use_rope: bool = True
                     ) -> torch.Tensor:
-    """Self-attention over a full sequence (train / eval).  Where no
-    gradient is taken the causal product runs the flash-attention op, as
-    :func:`attention_prefill` does; under autograd it runs
-    ``chunked_attention``, the reference's function (the flash kernel has
-    no backward)."""
+    """Self-attention over a full sequence (train / eval, an encoder).
+    ``positions``: (B, S), or (3, B, S) for M-RoPE."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
         if positions is None:
             positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
-    if causal and not _grad_taken(q, k, v):
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-    else:
-        out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    out = _attend(q, k, v, cfg, causal)
     return out.reshape(b, s, -1) @ p["o"].to(x.dtype)
 
 
-def _grad_taken(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+def cross_attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                          enc_out: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """Cross-attention (whisper's decoder): queries from ``x``, keys and
+    values from ``enc_out``, no mask."""
+    return cross_attention_prefill(p, x, enc_out, cfg)[0]
+
+
+def cross_attention_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                            enc_out: torch.Tensor, cfg: ModelConfig):
+    """:func:`cross_attention_block` that also returns the cross cache
+    ``(ck, cv)``, each (B, T_enc, KVH, hd), for the decode steps (the
+    reference's ``encdec_prefill`` computes them once from ``enc_out``)."""
+    b, s, _ = x.shape
+    q, ck, cv = _project_qkv(p, x, cfg, kv_src=enc_out)
+    out = _attend(q, ck, cv, cfg, causal=False)
+    return out.reshape(b, s, -1) @ p["o"].to(x.dtype), (ck, cv)
+
+
+def cross_attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                           ck: torch.Tensor, cv: torch.Tensor,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """One decode step's cross-attention over the cross cache ``ck``/``cv``
+    (B, T_enc, KVH, hd): every row attends to all T_enc keys.  The
+    reference runs ``chunked_attention(q, ck, cv, causal=False)`` with one
+    query, the function the decode-attention op computes at kv_len =
+    T_enc.  Only q is projected (the reference projects k and v of ``x``
+    too and drops them)."""
+    b = x.shape[0]
+    q = _project_q(p, x, cfg)[:, 0]
+    kv_len = torch.full((b,), ck.shape[1], dtype=torch.int32,
+                        device=x.device)
+    out = decode_attention(q, ck, cv, kv_len)
+    return out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
 
 
 def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
@@ -228,10 +302,7 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
         if positions is None:
             positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
-    if _grad_taken(q, k, v):
-        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    else:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    out = _attend(q, k, v, cfg, causal=True)
     pad = cache_len - s
     kc = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
     vc = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
@@ -253,9 +324,8 @@ def attention_decode(
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
-        positions = torch.full((b, 1), pos, dtype=torch.int32,
-                               device=x.device)
-        q, k = _rotate(q, k, positions, cfg)
+        at = torch.full((b,), pos, dtype=torch.int32, device=x.device)
+        q, k = _rotate(q, k, _decode_positions(at, cfg), cfg)
     # dynamic_update_slice clamps its start so the row fits; so does this
     pos_w = min(pos, k_cache.shape[1] - 1)
     k_cache[:, pos_w] = k[:, 0]
@@ -287,7 +357,7 @@ def attention_decode_slotted(
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
-        q, k = _rotate(q, k, lens[:, None], cfg)
+        q, k = _rotate(q, k, _decode_positions(lens, cfg), cfg)
     pos_w = lens.clamp(max=k_cache.shape[1] - 1).long()
     rows = torch.arange(b, device=x.device)
     k_cache[rows, pos_w] = k[:, 0]
@@ -341,7 +411,7 @@ def attention_decode_paged(
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
-        q, k = _rotate(q, k, lens[:, None], cfg)
+        q, k = _rotate(q, k, _decode_positions(lens, cfg), cfg)
     rows, blk, off = write
     k_pool.index_put_((blk, off), k[rows, 0])
     v_pool.index_put_((blk, off), v[rows, 0])

@@ -1,11 +1,11 @@
 """Shared building blocks: norms, RoPE, init.
 
 Counterpart of ``repro/models/common.py`` (norms, ``rope_freqs``,
-``apply_rope``, init), and of ``repro/models/transformer.py: _remat``.
-Parameters are plain nested dicts of tensors with the reference's ``(in,
-out)`` matrix layout, so ``x @ W`` reads the same in both packages.
-M-RoPE, the sinusoidal tables and the logical-axis specs belong to
-families a later slice ports.
+``apply_rope``, ``apply_mrope``, ``sinusoidal_positions``, init), and of
+``repro/models/transformer.py: _remat``.  Parameters are plain nested
+dicts of tensors with the reference's ``(in, out)`` matrix layout, so
+``x @ W`` reads the same in both packages.  The logical-axis specs wait
+for the TPU-pod tooling.
 """
 from __future__ import annotations
 
@@ -80,6 +80,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_components(sections: Tuple[int, int, int], device: torch.device
+                      ) -> torch.Tensor:
+    """The position component (0 t, 1 h, 2 w) of each rotary frequency,
+    made once a device: ``repeat_interleave`` with repeats on the card
+    would wait for them on the host at every call."""
+    return torch.repeat_interleave(torch.arange(3),
+                                   torch.tensor(sections)).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, hd); positions: (3, B, S),
+    the temporal, height and width position ids.  The rotary half-dim is
+    split into three sections, each rotated by its own position component
+    (arXiv:2409.12191 section 2.1); half-split as :func:`apply_rope`."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(hd, theta, device=x.device)            # (half,)
+    sec_id = _mrope_components(tuple(sections), x.device)     # (half,)
+    pos = positions.to(torch.float32).index_select(0, sec_id)  # (half,B,S)
+    angles = pos.movedim(0, -1) * freqs                        # (B,S,half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoid(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings of f32 positions ``pos`` (...,)
+    -> (..., d_model): sines of ``pos * exp(-ln(10000) * 2i / d_model)`` in
+    the first half, cosines in the second."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=pos.device)
+    inv = torch.exp(-math.log(10000.0) * dim / d_model)
+    ang = pos[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None
+                         ) -> torch.Tensor:
+    """:func:`sinusoid` of positions 0..length-1: (length, d_model), f32."""
+    return sinusoid(torch.arange(length, dtype=torch.float32, device=device),
+                    d_model)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,12 @@
 Counterpart of ``repro/models/registry.py``, holding the fields the
 serving and training paths read (the dry run's ``specs``, ``input_specs``
 and ``cache_shapes`` wait for the TPU-pod tooling).  Family dispatch
-happens once, here: the dense and MoE LM families, and the SSM and hybrid
-families (mamba2, zamba2).
+happens once, here: the dense, MoE and VLM LM families, the SSM and hybrid
+families (mamba2, zamba2), and the encoder-decoder (whisper).  A VLM batch
+carries ``embeds`` (B, S, D) and ``positions`` (3, B, S) where an LM batch
+carries ``tokens``; an encoder-decoder batch carries ``frames`` (B, T, D)
+and ``dec_tokens`` (B, S_dec), and its bundle has no slotted or paged
+serving path, as the reference's has none.
 
 * ``init(seed, device) -> params``
 * ``apply_train(params, batch) -> (logits, aux)`` — full teacher-forced pass
@@ -26,6 +30,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ENCDEC_DECODE_ENC_LEN
+from repro_torch.models import encdec as M_encdec
 from repro_torch.models import hybrid as M_hybrid
 from repro_torch.models import transformer as M_lm
 
@@ -68,15 +74,18 @@ class ModelBundle:
 
 def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
     def apply_train(params, batch):
-        return M_lm.lm_forward(params, cfg, tokens=batch["tokens"],
+        return M_lm.lm_forward(params, cfg, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"),
                                positions=batch.get("positions"))
 
     def apply_hidden(params, batch):
-        return M_lm.lm_hidden(params, cfg, tokens=batch["tokens"],
+        return M_lm.lm_hidden(params, cfg, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"),
                               positions=batch.get("positions"))
 
     def prefill(params, batch):
-        return M_lm.lm_prefill(params, cfg, tokens=batch["tokens"],
+        return M_lm.lm_prefill(params, cfg, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"),
                                positions=batch.get("positions"),
                                cache_len=batch["cache_len"])
 
@@ -188,8 +197,44 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
     )
 
 
+def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
+    def apply_train(params, batch):
+        return M_encdec.encdec_forward(params, cfg, frames=batch["frames"],
+                                       dec_tokens=batch["dec_tokens"])
+
+    def apply_hidden(params, batch):
+        return M_encdec.encdec_hidden(params, cfg, frames=batch["frames"],
+                                      dec_tokens=batch["dec_tokens"])
+
+    def prefill(params, batch):
+        return M_encdec.encdec_prefill(params, cfg, frames=batch["frames"],
+                                       dec_tokens=batch["dec_tokens"],
+                                       cache_len=batch["cache_len"])
+
+    def decode_step(params, cache, batch):
+        return M_encdec.encdec_decode_step(params, cache, batch["tokens"],
+                                           cfg)
+
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda seed=0, device=None: M_encdec.init_encdec(seed, cfg,
+                                                              device),
+        apply_train=apply_train,
+        prefill=prefill,
+        decode_step=decode_step,
+        make_cache=lambda b, s, device=None: M_encdec.init_encdec_cache(
+            cfg, b, s, ENCDEC_DECODE_ENC_LEN, device=device),
+        cache_specs=lambda: M_encdec.encdec_cache_specs(cfg),
+        apply_hidden=apply_hidden,
+        unembed_chunk=lambda params, x: M_encdec.encdec_unembed(
+            params, x, cfg),
+    )
+
+
 def build_model(cfg: ModelConfig) -> ModelBundle:
     if cfg.family in ("ssm", "hybrid"):
         return _hybrid_bundle(cfg)
+    if cfg.family == "encdec":
+        return _encdec_bundle(cfg)
     M_lm.check_family(cfg)
     return _lm_bundle(cfg)

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and MoE families.
+"""Decoder-only LM: dense, MoE and VLM families.
 
 Counterpart of ``repro/models/transformer.py``.  The reference stacks layer
 parameters on a leading ``layers`` axis for ``lax.scan``; PyTorch runs
@@ -13,7 +13,10 @@ Entry points: ``lm_forward`` (training), ``lm_prefill`` / ``lm_decode_step``
 serving engine's dense path) and their ``_paged`` forms (a block pool
 shared by every slot, the paged engine's path).  An MoE layer holds
 ``moe`` where a dense one holds ``mlp``; training sums the layers' load-
-balance losses, serving discards them, as the reference does.
+balance losses, serving discards them, as the reference does.  The VLM
+family (qwen2-vl) is the dense one fed precomputed ``embeds`` (its vision
+frontend is a stub in the reference too) at M-RoPE ``positions`` (3, B,
+S); it has no slotted or paged prefill, whose prompts are token ids.
 """
 from __future__ import annotations
 
@@ -44,11 +47,24 @@ from repro_torch.models.moe import init_moe, moe_block
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (this module serves "
-            f"the dense and MoE LM families; ssm and hybrid are "
-            f"models/hybrid.py)")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(
+            f"family {cfg.family!r} is not a family of this module (it "
+            f"serves the dense, MoE and VLM LM families; ssm and hybrid are "
+            f"models/hybrid.py, encdec models/encdec.py)")
+
+
+def check_token_prompts(cfg: ModelConfig) -> None:
+    """The slotted and paged prefill take token prompts at arange
+    positions; an M-RoPE model's prompts are embeddings at (3, B, S)
+    positions.  The reference's slotted prefill fails there with an
+    IndexError (its RoPE indexes (B, S) positions); this refuses first."""
+    if cfg.mrope:
+        raise ValueError(
+            f"{cfg.name}: the slotted and paged prefill take token prompts "
+            f"at (B, S) positions; an M-RoPE ({cfg.family}) model needs "
+            f"(3, B, S) positions and embeddings: use prefill and "
+            f"decode_step")
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +205,15 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
     return x.reshape(*tokens.shape, -1).to(torch_dtype(cfg.dtype))
 
 
+def _inputs(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The first layer's input: ``embeds`` (B, S, D) where given (the VLM
+    and audio stub frontends), else the lookup of ``tokens``."""
+    if embeds is not None:
+        return embeds.to(torch_dtype(cfg.dtype))
+    return embed_tokens(params, tokens, cfg)
+
+
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"].T.to(x.dtype)
@@ -204,15 +229,18 @@ def _layer_fwd(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 
 
 def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
-              tokens: torch.Tensor,
+              tokens: Optional[torch.Tensor] = None,
+              embeds: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward. Returns (final-norm hidden (B,S,D), aux_loss): the
-    sum of the MoE layers' load-balance losses, a zero for the dense
-    family.  Where a gradient is taken each layer runs under
-    ``cfg.remat`` (:func:`remat_call`), as the reference's scan body."""
+    """Backbone forward over ``tokens`` (B, S) or ``embeds`` (B, S, D) at
+    ``positions`` (B, S), or (3, B, S) for M-RoPE (default: arange).
+    Returns (final-norm hidden (B,S,D), aux_loss): the sum of the MoE
+    layers' load-balance losses, a zero for the other families.  Where a
+    gradient is taken each layer runs under ``cfg.remat``
+    (:func:`remat_call`), as the reference's scan body."""
     check_family(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = _inputs(params, cfg, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         x, aux_l = remat_call(cfg.remat, _layer_fwd, lp, x, cfg, positions)
@@ -223,11 +251,14 @@ def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
 
 
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig, *,
-               tokens: torch.Tensor,
+               tokens: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full forward. Returns (logits (B,S,V), aux_loss)."""
-    x, aux = lm_hidden(params, cfg, tokens=tokens, positions=positions)
+    """Full forward (inputs as :func:`lm_hidden`). Returns (logits (B,S,V),
+    aux_loss)."""
+    x, aux = lm_hidden(params, cfg, tokens=tokens, embeds=embeds,
+                       positions=positions)
     return unembed(params, x, cfg), aux
 
 
@@ -265,12 +296,16 @@ def _prefill_layers(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def lm_prefill(params: Dict[str, Any], cfg: ModelConfig, *,
-               tokens: torch.Tensor,
+               tokens: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None,
                positions: Optional[torch.Tensor] = None,
                cache_len: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Prefill pass: returns (last-token logits (B,V), populated cache)."""
+    """Prefill pass (inputs as :func:`lm_hidden`): returns (last-token
+    logits (B,V), populated cache).  The cache's ``len`` is the prompt's
+    length, the next decode step's position (each M-RoPE component's too,
+    as in the reference)."""
     check_family(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = _inputs(params, cfg, tokens, embeds)
     s = x.shape[1]
     x, k_all, v_all = _prefill_layers(params, cfg, x, cache_len, positions)
     x = apply_norm(cfg.norm, x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -300,9 +335,11 @@ def lm_prefill_slotted(params: Dict[str, Any], cfg: ModelConfig, *,
     the pad tail, so the gathered last-real-token logits and the cache rows
     ``< lens[b]`` are exact; pad-tail KV rows hold garbage but stay masked
     because the slot's length is ``lens[b]``.  Returns per-row
-    last-real-token logits ``(B, V)`` and a slot cache.
+    last-real-token logits ``(B, V)`` and a slot cache.  Refuses M-RoPE
+    models (:func:`check_token_prompts`).
     """
     check_family(cfg)
+    check_token_prompts(cfg)
     x = embed_tokens(params, tokens, cfg)
     x, k_all, v_all = _prefill_layers(params, cfg, x, cache_len, None)
     rows = torch.arange(x.shape[0], device=x.device)
@@ -410,12 +447,15 @@ def lm_decode_step_paged(params: Dict[str, Any], cache: Dict[str, Any],
 
 
 def lm_decode_step(params: Dict[str, Any], cache: Dict[str, Any],
-                   tokens: torch.Tensor, cfg: ModelConfig
+                   tokens: torch.Tensor, cfg: ModelConfig,
+                   embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step: returns (logits (B,V), updated cache); the cache's
-    K/V are written in place."""
+    """One decode step of ``tokens`` (B, 1), or of ``embeds`` (B, 1, D)
+    where given, at position ``cache["len"]`` (each M-RoPE component
+    there): returns (logits (B,V), updated cache); the cache's K/V are
+    written in place."""
     check_family(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = _inputs(params, cfg, tokens, embeds)
     pos = cache["len"]
     for i, lp in enumerate(params["layers"]):
         a, _, _ = attention_decode(lp["attn"], _attn_in(lp, x, cfg),

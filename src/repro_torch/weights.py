@@ -2,7 +2,8 @@
 
 The only place where the two packages' layouts are mapped.  For the LM
 families ``repro`` stacks every layer's params on a leading ``layers`` axis
-(for ``lax.scan``); the port keeps a list of per-layer dicts.  An MoE
+(for ``lax.scan``); the port keeps a list of per-layer dicts, and so
+for an encoder-decoder's ``enc_layers`` and ``dec_layers``.  An MoE
 layer's ``moe`` leaves keep their layout: ``router`` (D, E), ``gate`` and
 ``up`` (E, D, F), ``down`` (E, F, D), each expert's matrix row-major as the
 grouped-matmul kernel reads it.  For the SSM and hybrid families ``repro``
@@ -57,10 +58,18 @@ def _leading(tree: Any) -> int:
 
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None
                     ) -> Dict[str, Any]:
-    """``tree`` is the reference's ``init_lm`` or ``init_hybrid`` params
-    with numpy leaves (``jax.tree.map(np.asarray, params)``).  Returns the
-    port's params on ``device``, each leaf in its source dtype."""
+    """``tree`` is the reference's ``init_lm``, ``init_hybrid`` or
+    ``init_encdec`` params with numpy leaves (``jax.tree.map(np.asarray,
+    params)``).  Returns the port's params on ``device``, each leaf in its
+    source dtype."""
     dev = resolve_device(device)
+    if "enc_layers" in tree:                  # encoder-decoder
+        out = {k: _unstack(tree[k], _leading(tree[k]), dev)
+               for k in ("enc_layers", "dec_layers")}
+        out["embed"] = _tensor(tree["embed"], dev)
+        for k in ("enc_norm", "final_norm"):
+            out[k] = _map(tree[k], lambda a: _tensor(a, dev))
+        return out
     if "layers" not in tree:                  # SSM / hybrid families
         out = {k: _tensor(tree[k], dev) for k in ("embed", "unembed")}
         out["final_norm"] = _map(tree["final_norm"],

@@ -1,7 +1,7 @@
 """``attention_block`` takes the flash-attention op where no gradient is
-taken and ``chunked_attention`` under autograd; both routes are held
-against the reference's ``attention_block`` (CPU, f32 at F32_TOL), and the
-eval step runs the flash op once a layer."""
+taken, causal or not, and ``chunked_attention`` under autograd; both
+routes are held against the reference's ``attention_block`` (CPU, f32 at
+F32_TOL), and the eval step runs the flash op once a layer."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +21,9 @@ def flash_calls(monkeypatch):
     calls = []
     real = TA.flash_attention
 
-    def counted(q, k, v):
-        calls.append(tuple(q.shape))
-        return real(q, k, v)
+    def counted(q, k, v, causal=True):
+        calls.append(tuple(q.shape) if causal else (tuple(q.shape), "full"))
+        return real(q, k, v, causal)
     monkeypatch.setattr(TA, "flash_attention", counted)
     return calls
 
@@ -63,11 +63,19 @@ def test_params_without_grad_take_flash_too(flash_calls):
 
 
 def test_non_causal_keeps_chunked_attention(flash_calls):
+    """The non-causal product (an encoder's) keeps chunked_attention under
+    autograd, and takes the flash op without a mask where no gradient is
+    taken; both against the reference's."""
     jcfg, tcfg, jp, tp, x = _layer_inputs("qwen3-4b")
+    want = JA.attention_block(jp, jnp.asarray(x), jcfg, causal=False)
+    got = TA.attention_block(tp, torch.from_numpy(x).requires_grad_(True),
+                             tcfg, causal=False)
+    assert flash_calls == [] and got.grad_fn is not None
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
     with torch.no_grad():
         got = TA.attention_block(tp, torch.from_numpy(x), tcfg, causal=False)
-    want = JA.attention_block(jp, jnp.asarray(x), jcfg, causal=False)
-    assert flash_calls == []
+    assert flash_calls == [((2, 40, tcfg.n_heads, tcfg.resolved_head_dim),
+                            "full")]
     np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
 
 

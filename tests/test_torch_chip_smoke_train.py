@@ -27,9 +27,9 @@ TOY_GMM = [(4, 32, 64, 48, "bfloat16"), (2, 17, 100, 72, "float32")]
 TOY_RUN = dict(steps=10, batch=4, seq=32, ckpt_every=4, fail_step=5)
 
 
-def _counted_flash(q, k, v):
+def _counted_flash(q, k, v, causal=True):
     count_launch(flash_ops.flash_attention, "fma")
-    return flash_ops.flash_attention_ref(q, k, v)
+    return flash_ops.flash_attention_ref(q, k, v, causal)
 
 
 def _counted_product(x, w):
@@ -176,7 +176,7 @@ def test_train_phase_gates_each_eval_flash_launch(patched, tmp_path):
     little; the check of each launch on its own inputs catches it."""
     mp, _ = patched
 
-    def unmasked(q, k, v):
+    def unmasked(q, k, v, causal=True):
         count_launch(flash_ops.flash_attention, "fma")
         rep = q.shape[2] // k.shape[2]
         kk, vv = (t.repeat_interleave(rep, dim=2) for t in (k, v))

@@ -695,6 +695,120 @@ def test_flash_tensor_core_path_matches_plain_version(cuda_device, h, kvh,
                                **TOL[torch.bfloat16])
 
 
+# without a mask: Sk at the tails of the 32-key (f32) and 64-key (bf16)
+# tiles and whisper's 1,500 frames (a 28-key tail tile on the tensor
+# cores); Sq 1, 4 (a decoder prompt against the encoder) and 1,500 (the
+# encoder's self-attention)
+FULL_SQ = [1, 4, 1500]
+FULL_SK = [1, 63, 65, 1500]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sk", FULL_SK)
+@pytest.mark.parametrize("sq", FULL_SQ)
+def test_flash_kernel_without_a_mask_at_tile_tails(cuda_device, sq, sk, hd,
+                                                   dtype):
+    """causal=False against the plain version: the keys past Sk that the
+    last tile zero-fills must not enter the softmax.  whisper-tiny's 6/6
+    heads at hd 64, a GQA group of 2 at hd 128."""
+    h, kvh = (6, 6) if hd == 64 else (4, 2)
+    gen = torch.Generator(device="cpu").manual_seed(sq * 7 + sk)
+    q = torch.randn(2, sq, h, hd, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(2, sk, kvh, hd, generator=gen).to(cuda_device, dtype)
+            for _ in range(2))
+    path = "wgmma" if dtype == torch.bfloat16 else "fma"
+    before = (flash_attention.launches_by_mask["full"],
+              flash_attention.launches_by_path[path])
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_by_mask["full"],
+            flash_attention.launches_by_path[path]) == (before[0] + 1,
+                                                        before[1] + 1)
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(q, k, v, causal=False).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(4, 100), (100, 4), (65, 130),
+                                   (130, 65), (1, 1500)])
+def test_flash_kernel_causal_with_sq_unlike_sk(cuda_device, sq, sk, dtype):
+    """causal=True where Sq != Sk: the reference's top-left mask (query i
+    sees keys 0..i), the diagonal and the Sk tail in one last tile or
+    apart."""
+    gen = torch.Generator(device="cpu").manual_seed(sq + 3 * sk)
+    q = torch.randn(1, sq, 8, 64, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(1, sk, 2, 64, generator=gen).to(cuda_device, dtype)
+            for _ in range(2))
+    before = flash_attention.launches_by_mask["causal"]
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_mask["causal"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
+def test_encdec_and_vlm_run_every_kernel(cuda_device, arch):
+    """The reduced encoder-decoder and VLM (f32) through prefill and three
+    decode steps on the card: flash launches = encoder layers + 2 x decoder
+    layers (whisper: the unmasked ones counted as full) or layers (VLM),
+    decode launches = 2 x decoder layers or layers a step; the logits equal
+    the same calls on the CPU to 1e-4 (f32 kernels and cuBLAS against the
+    CPU's plain versions, sums in other orders over 5 layers)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_map
+    cfg = reduced_config(arch)
+    bundle = build_model(cfg)
+    cpu_params = bundle.init(0, device="cpu")
+    params = tree_map(lambda t: t.to(cuda_device), cpu_params)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    if cfg.family == "encdec":
+        batch = {"frames": torch.randn(2, 70, cfg.d_model, generator=gen),
+                 "dec_tokens": torch.randint(0, cfg.vocab_size, (2, 5),
+                                             generator=gen)}
+        n_flash, n_decode = cfg.n_layers + 2 * cfg.n_dec_layers, \
+            2 * cfg.n_dec_layers
+        full = cfg.n_layers + cfg.n_dec_layers
+    else:
+        s = 37
+        pos = torch.stack([torch.arange(s), torch.arange(s) // 4,
+                           torch.arange(s) % 4])[:, None].expand(3, 2, s)
+        batch = {"embeds": torch.randn(2, s, cfg.d_model, generator=gen),
+                 "positions": pos.contiguous()}
+        n_flash, n_decode, full = cfg.n_layers, cfg.n_layers, 0
+    batch["cache_len"] = 48
+
+    def on(device):
+        return {k: v.to(device) if hasattr(v, "to") else v
+                for k, v in batch.items()}
+    before = (flash_attention.launches, flash_attention.launches_by_mask[
+        "full"], decode_attention.launches)
+    with torch.no_grad():
+        got, cache = bundle.prefill(params, on(cuda_device))
+        want, cpu_cache = bundle.prefill(cpu_params, on("cpu"))
+        for _ in range(3):
+            tok = want.argmax(-1)[:, None]
+            got, cache = bundle.decode_step(params, cache,
+                                            {"tokens": tok.to(cuda_device)})
+            want, cpu_cache = bundle.decode_step(cpu_params, cpu_cache,
+                                                 {"tokens": tok})
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention.launches_by_mask["full"] - before[1],
+            decode_attention.launches - before[2]) == (n_flash, full,
+                                                       3 * n_decode)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-780m"])
 def test_hybrid_engine_runs_every_kernel(cuda_device, arch):

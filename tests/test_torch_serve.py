@@ -142,15 +142,16 @@ def test_launch_main_runs_on_cpu(mode, capsys):
 
 
 def test_unported_options_raise():
-    """The encoder-decoder family is still to port (ROADMAP.md queue 1);
-    the MoE family, the paged cache, the fault hook and the router are
-    ported and tested in tests/test_torch_moe.py,
-    tests/test_torch_serve_paged.py and tests/test_torch_router.py."""
+    """Every family is ported: the encoder-decoder in models/encdec.py
+    (tests/test_torch_encdec.py).  Its bundle has no slotted serving path,
+    as the reference's has none, and the LM module refuses it; the MoE
+    family, the paged cache, the fault hook and the router are tested in
+    tests/test_torch_moe.py, tests/test_torch_serve_paged.py and
+    tests/test_torch_router.py."""
     _, tcfg, _, bundle, tp = _port()
     encdec = dataclasses.replace(tcfg, family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        build_model(encdec)
-    with pytest.raises(NotImplementedError, match="encdec"):
+    assert build_model(encdec).decode_slotted is None
+    with pytest.raises(ValueError, match="encdec"):
         init_lm(0, encdec, device="cpu")
 
 
