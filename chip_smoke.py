@@ -206,7 +206,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash launch against its plain version, the plain-swap logits gate;
    10 train steps at 8 x 512 (remat full, 2 microbatches, AdamW) on one
    fixed batch: the loss falls; peak memory and tokens/s printed;
-17. the last lines are the card (nvidia-smi), a JSON line of every kernel
+17. the pod tooling, in two processes of its own: (a) an NCCL group of
+   one rank and a (1, 1) ("data", "model") CUDA mesh; qwen2-0.5b at its
+   published widths cut to 4 layers (3 train steps at 8 x 512 and one eval
+   step on the flash kernel), dbrx-132b reduced as in 14d (one train step:
+   gmm forward and backward on local shards) and qwen3-4b cut to 4 layers
+   (a prefill of 4 x 128 and 8 greedy decode steps: flash and decode
+   kernels), each run with plain params and again with
+   ``distribute_params``'s DTensors under ``axis_rules``.  Gates: the
+   losses, the eval loss, the params after the steps, the logits and the
+   tokens equal bit for bit; each kernel's launches equal the plain run's
+   and what the path makes (4 flash an eval step; 3 sites x 3 layers x 4
+   passes x 2 microbatches gmm; 4 flash a prefill and 4 decode a step).
+   The wall time of each with and without the mesh (and of each train
+   step, and a second run of the others: the first fills DTensor's
+   sharding caches) is printed; (b) the
+   dry run (repro_torch.launch.dryrun.run_cell) on the fake (16, 16) mesh
+   of 256 ranks: qwen3-4b x train_4k and x decode_32k, dbrx-132b x
+   prefill_32k, zamba2-7b x long_500k at their published widths.  Gates:
+   every cell ok, rank 0's param bytes equal what the specs imply exactly;
+   each cell's peak bytes, flops, bytes, collective bytes by kind, the
+   dominant term and useful_fraction are printed;
+18. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -4023,6 +4044,316 @@ def phase_vlm(torch, device: str = "cuda", reduced: bool = False, run=None,
                 train=tr)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the pod tooling (DTensor on a one-card mesh; the dry run)
+# ---------------------------------------------------------------------------
+
+# 17a: each model once with no mesh and once on a (1, 1) mesh of one NCCL
+# rank with its params as DTensors (random weights from SEED, bf16)
+MESH_TRAIN = dict(arch="qwen2-0.5b", layers=4, steps=3, batch=8, seq=512)
+MESH_MOE = dict(arch="dbrx-132b", batch=4, seq=64)      # phase 14d's config
+MESH_SERVE = dict(arch="qwen3-4b", layers=4, batch=4, prompt=128,
+                  cache_len=160, steps=8)
+# 17b: the dry run's cells on the fake (16, 16) mesh of 256 ranks
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "decode_32k"),
+                ("dbrx-132b", "prefill_32k"), ("zamba2-7b", "long_500k"))
+CHILD_TIMEOUT_S = 300
+
+
+def _same(torch, a, b) -> bool:
+    """Bit for bit: every leaf of two trees (DTensors as their full
+    tensors) equal, dtypes and shapes included."""
+    from repro_torch.distributed.sharding import full_tree
+    from repro_torch.optim.adamw import tree_leaves
+    la, lb = tree_leaves(full_tree(a)), tree_leaves(full_tree(b))
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _timed(torch, fn, device):
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_child(out_path: str, device: str = "cuda") -> int:
+    """Phase 17a, in its own process: a process group of one rank (NCCL on
+    the card, gloo on the CPU), a (1, 1) ("data", "model") mesh, and each
+    run twice, with plain params and with ``distribute_params``'s DTensors
+    under ``axis_rules``; results to ``out_path`` as JSON."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(dev)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm import LMDataConfig, make_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.training.loop import batch_to_device
+    from repro_torch.training.step import (
+        TrainState,
+        make_eval_step,
+        make_train_step,
+    )
+    mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+    out: dict = {"train": {}, "moe": {}, "serve": {}}
+
+    def twice(name, arch, batch, run, again=False):
+        """``run(mesh_or_None)`` with no mesh, then on the mesh, each with
+        the counts at 0 just before it and read just after; (its two
+        results, the counts, the wall ms).  ``again``: both once more,
+        timed only (the first mesh run fills DTensor's caches)."""
+        res = {}
+        rules = rules_for(arch, multi_pod=False, global_batch=batch)
+        runs = (("plain", None), ("mesh", mesh))
+        for tag, m in runs + ((("plain_again", None), ("mesh_again", mesh))
+                              if again else ()):
+            reset_counts()
+            with sh.axis_rules(rules if m is not None else None, m):
+                got, ms = _timed(torch, lambda: run(m), dev)
+            if not tag.endswith("again"):
+                res[tag] = got
+                res[tag + "_counts"] = read_counts()
+            res[tag + "_ms"] = ms
+        out[name].update({k: v for k, v in res.items()
+                          if k.endswith(("_counts", "_ms"))})
+        return res
+
+    # ---- qwen2-0.5b, 4 layers: 3 train steps and one eval step ----------
+    t = MESH_TRAIN
+    cfg = dataclasses.replace(get_config(t["arch"]), n_layers=t["layers"],
+                              **t.get("cfg", {}))
+    bundle = build_model(cfg)
+    params0 = bundle.init(SEED, dev)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                        global_batch=t["batch"])
+    host = [make_batch(data, s) for s in range(t["steps"] + 1)]
+
+    def train(m):
+        params = tree_map(lambda x: x.clone(), params0)
+        if m is not None:
+            params = sh.distribute_params(params, bundle.specs(),
+                                          sh.current_rules(), m)
+        step, opt = make_train_step(bundle)
+        state = TrainState(0, params, opt.init(params))
+        losses, step_ms = [], []
+        for b in host[:t["steps"]]:
+            (state, met), ms = _timed(torch, lambda: step(
+                state, batch_to_device(b, dev, bundle, m)), dev)
+            losses.append(met["loss"])
+            step_ms.append(ms)
+        out["train"][("mesh" if m is not None else "plain")
+                     + "_step_ms"] = step_ms
+        reset_counts()      # the eval step's launches alone
+        ev = make_eval_step(bundle)(state.params, batch_to_device(
+            host[-1], dev, bundle, m))
+        return dict(losses=losses, eval=ev["loss"], params=state.params)
+    r = twice("train", t["arch"], t["batch"], train)
+    out["train"]["same"] = dict(
+        losses=_same(torch, r["plain"]["losses"], r["mesh"]["losses"]),
+        eval=_same(torch, r["plain"]["eval"], r["mesh"]["eval"]),
+        params=_same(torch, r["plain"]["params"], r["mesh"]["params"]))
+    out["train"]["losses"] = [float(x) for x in r["plain"]["losses"]]
+    del r, params0
+
+    # ---- dbrx-132b reduced (phase 14d's config): one train step ---------
+    t = MESH_MOE
+    cfg = dataclasses.replace(reduced_config(t["arch"]), remat="full",
+                              microbatches=2)
+    bundle = build_model(cfg)
+    params0 = bundle.init(SEED, dev)
+    data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                        global_batch=t["batch"])
+
+    def moe(m):
+        params = tree_map(lambda x: x.clone(), params0)
+        if m is not None:
+            params = sh.distribute_params(params, bundle.specs(),
+                                          sh.current_rules(), m)
+        step, opt = make_train_step(bundle)
+        state, met = step(TrainState(0, params, opt.init(params)),
+                          batch_to_device(make_batch(data, 0), dev, bundle,
+                                          m))
+        return dict(loss=met["loss"], grad_norm=met["grad_norm"],
+                    params=state.params)
+    r = twice("moe", t["arch"], t["batch"], moe, again=True)
+    out["moe"]["same"] = dict(
+        loss=_same(torch, r["plain"]["loss"], r["mesh"]["loss"]),
+        grad_norm=_same(torch, r["plain"]["grad_norm"],
+                        r["mesh"]["grad_norm"]),
+        params=_same(torch, r["plain"]["params"], r["mesh"]["params"]))
+    out["moe"]["want_gmm"] = 3 * cfg.n_layers * 4 * cfg.microbatches
+    del r, params0
+
+    # ---- qwen3-4b, 4 layers: one prefill and 8 greedy decode steps ------
+    t = MESH_SERVE
+    cfg = dataclasses.replace(get_config(t["arch"]), n_layers=t["layers"],
+                              **t.get("cfg", {}))
+    bundle = build_model(cfg)
+    params0 = bundle.init(SEED, dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (t["batch"], t["prompt"]),
+                           generator=gen).to(dev)
+
+    def serve(m):
+        params = params0
+        rules = sh.current_rules()
+        if m is not None:
+            params = sh.distribute_params(params, bundle.specs(), rules, m)
+        toks = prompt if m is None else sh.distribute_params(
+            {"t": prompt}, {"t": ("batch", "seq")}, rules, m)["t"]
+        with torch.no_grad():
+            logits, cache = bundle.prefill(params, {
+                "tokens": toks, "cache_len": t["cache_len"]})
+            first = logits
+            tokens = []
+            for _ in range(t["steps"]):
+                nxt = logits.argmax(-1)[:, None]
+                tokens.append(nxt)
+                logits, cache = bundle.decode_step(params, cache,
+                                                   {"tokens": nxt})
+        return dict(logits=first, last=logits, tokens=tokens)
+    r = twice("serve", t["arch"], t["batch"], serve, again=True)
+    out["serve"]["same"] = dict(
+        logits=_same(torch, r["plain"]["logits"], r["mesh"]["logits"]),
+        last=_same(torch, r["plain"]["last"], r["mesh"]["last"]),
+        tokens=_same(torch, r["plain"]["tokens"], r["mesh"]["tokens"]))
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def dryrun_child(out_path: str) -> int:
+    """Phase 17b, in its own process: DRYRUN_CELLS through
+    ``repro_torch.launch.dryrun.run_cell`` on the fake (16, 16) mesh;
+    each cell's report and details to ``out_path`` as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        details: dict = {}
+        t0 = time.perf_counter()
+        rep = dryrun.run_cell(arch, shape, False, details=details)
+        cells.append(dict(report=rep.to_dict(), details=details,
+                          wall_s=time.perf_counter() - t0))
+    Path(out_path).write_text(json.dumps(cells))
+    return 0
+
+
+def _child(flag: str, tag: str) -> object:
+    """Run this script with ``flag`` in a process of its own; its JSON."""
+    out = ROOT / "build" / f"chip_smoke_{tag}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                           str(out)], capture_output=True, text=True,
+                          timeout=CHILD_TIMEOUT_S, cwd=ROOT)
+    for line in done.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            log(line)
+    if done.returncode != 0 or not out.exists():
+        raise RuntimeError(f"phase {tag} exited {done.returncode}:\n"
+                           f"{done.stdout[-3000:]}\n{done.stderr[-6000:]}")
+    log(f"[{tag}] its process took {time.perf_counter() - t0:.1f}s")
+    result = json.loads(out.read_text())
+    out.unlink()
+    return result
+
+
+def phase_mesh() -> dict:
+    """Phase 17a: the mesh runs equal the plain runs bit for bit, with
+    equal kernel launches, and those launches are what the paths make."""
+    r = _child("--phase-17a", "17a")
+    bad = {f"{name}.{k}": v for name in ("train", "moe", "serve")
+           for k, v in r[name]["same"].items() if not v}
+    for name in ("train", "moe", "serve"):
+        if r[name]["plain_counts"] != r[name]["mesh_counts"]:
+            bad[f"{name} launches"] = (r[name]["plain_counts"],
+                                       r[name]["mesh_counts"])
+    t, m, s = MESH_TRAIN, r["moe"], MESH_SERVE
+    want = {"train": {"flash_attention": t["layers"]},
+            "moe": {"moe_gmm": m["want_gmm"]},
+            "serve": {"flash_attention": s["layers"],
+                      "decode_attention": s["layers"] * s["steps"]}}
+    for name, w in want.items():
+        got = {k: r[name]["mesh_counts"][k] for k in w}
+        if got != w:
+            bad[f"{name} launches vs the path"] = (got, w)
+    if bad:
+        raise RuntimeError(f"phase 17a: the (1, 1) mesh differs from no "
+                           f"mesh: {bad}")
+    for name, what in (("train", f"{t['arch']} ({t['layers']} layers) "
+                                 f"{t['steps']} train steps at {t['batch']}"
+                                 f" x {t['seq']} and one eval step"),
+                       ("moe", f"{MESH_MOE['arch']} reduced, one train step"
+                               f" (remat full, 2 microbatches)"),
+                       ("serve", f"{s['arch']} ({s['layers']} layers) one "
+                                 f"prefill of {s['batch']} x {s['prompt']} "
+                                 f"and {s['steps']} decode steps")):
+        x = r[name]
+        steps = (f"; train steps {[round(v, 1) for v in x['plain_step_ms']]}"
+                 f" ms without, {[round(v, 1) for v in x['mesh_step_ms']]} "
+                 f"ms with") if name == "train" else (
+            f"; again {x['plain_again_ms']:.1f} ms without, "
+            f"{x['mesh_again_ms']:.1f} ms with "
+            f"({x['mesh_again_ms'] / x['plain_again_ms']:.2f}x)")
+        log(f"[mesh] {what}: bit for bit on the (1, 1) mesh "
+            f"({', '.join(x['same'])}); launches "
+            f"{ {k: v for k, v in x['mesh_counts'].items() if v} }; wall "
+            f"{x['plain_ms']:.1f} ms without the mesh, {x['mesh_ms']:.1f} "
+            f"ms with it ({x['mesh_ms'] / x['plain_ms']:.2f}x){steps}")
+    return r
+
+
+def phase_dryrun() -> list:
+    """Phase 17b: every cell ok, and rank 0's param bytes equal what the
+    specs imply exactly."""
+    cells = _child("--phase-17b", "17b")
+    bad = [(c["report"]["arch"], c["report"]["shape"]) for c in cells
+           if not c["report"]["ok"] or c["details"]["param_bytes"]
+           != c["details"]["param_bytes_implied"]]
+    if bad:
+        raise RuntimeError(f"phase 17b: cells not ok or param bytes not "
+                           f"exact: {bad}")
+    for c in cells:
+        rep, det = c["report"], c["details"]
+        log(f"[dryrun] {rep['arch']} x {rep['shape']} x {rep['mesh']}: "
+            f"peak {rep['peak_bytes'] / 2**30:.3f} GiB/dev, params "
+            f"{det['param_bytes']} B/dev (= specs), flops "
+            f"{rep['flops_dev']:.6g}, bytes {rep['bytes_dev']:.6g}, "
+            f"collective bytes {rep['coll_breakdown']}, dominant "
+            f"{rep['dominant']} (compute {rep['compute_s']:.6g} s, memory "
+            f"{rep['memory_s']:.6g} s, collective {rep['collective_s']:.6g}"
+            f" s at H100 SXM constants), useful_fraction "
+            f"{rep['useful_fraction']:.4f}, kernels {det['kernels']}, "
+            f"{c['wall_s']:.1f}s")
+    return cells
+
+
 def gmm_entry(moe, bwd=None, moe_train=None) -> dict:
     """The ``kernels`` line's entry for the grouped matmul, from phase 12:
     launches of the dense engine's run; times per launch over one decode
@@ -4181,6 +4512,10 @@ def ratios(ms: float, **others: float) -> str:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase-17a":
+        return mesh_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase-17b":
+        return dryrun_child(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4257,6 +4592,10 @@ def main() -> int:
     vlm = phase_vlm(torch)
     torch.cuda.empty_cache()
     log(f"[vlm] phases 15-16 in {time.perf_counter() - t_new:.1f}s")
+    t_pod = time.perf_counter()
+    mesh = phase_mesh()
+    dry = phase_dryrun()
+    log(f"[pod] phase 17 in {time.perf_counter() - t_pod:.1f}s")
     zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
@@ -4387,7 +4726,22 @@ def main() -> int:
                    "encdec_rel_err and vlm_rel_err the largest normwise "
                    "error of a prefill's launches",
     }, gmm_entry(moe, gmm_bwd, moe_train)]
-    log(f"[done] phases 3-16 in {time.perf_counter() - t_total:.1f}s; ecg "
+    # phase 17: launches of the (1, 1) mesh's runs, and each kernel's calls
+    # in the dry run's cells (fake: no launch, extrapolated to full depth)
+    mesh_launches = {
+        "decode_attention": mesh["serve"]["mesh_counts"]["decode_attention"],
+        "flash_attention": mesh["train"]["mesh_counts"]["flash_attention"]
+        + mesh["serve"]["mesh_counts"]["flash_attention"],
+        "moe_gmm": mesh["moe"]["mesh_counts"]["moe_gmm"]}
+    dry_names = {"gmm": "moe_gmm"}
+    for entry in kernels:
+        if entry["name"] in mesh_launches:
+            entry["mesh_launches"] = mesh_launches[entry["name"]]
+        entry["dryrun_calls"] = {
+            f"{c['report']['arch']} x {c['report']['shape']}": k["calls"]
+            for c in dry for name, k in c["details"]["kernels"].items()
+            if dry_names.get(name, name) == entry["name"]}
+    log(f"[done] phases 3-17 in {time.perf_counter() - t_total:.1f}s; ecg "
         f"rates {ecg['rates']}; zamba2-7b tok/s dense "
         f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
         f" mamba2-780m tok/s {mamba['tok_s']:.1f}; dbrx-132b (8 layers) "

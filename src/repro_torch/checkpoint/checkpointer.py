@@ -16,6 +16,13 @@ either package restores what the other wrote:
   training step writes the params in place afterwards) and writes on a
   daemon thread; ``wait()`` joins before the next save or exit.
 
+A DTensor leaf (a sharded run) is saved as its full tensor, so the layout
+is the same whether or not the run had a mesh, and each package reads
+it; restoring into a DTensor leaf puts each rank's shard back on that
+leaf's placements.  Gathering a DTensor is a collective, so every rank
+calls ``save``; only rank 0 writes, synchronously, and every rank waits
+for it before going on.
+
 The port keeps a model's layers as a list where ``repro`` stacks them, so
 a ``repro`` checkpoint's leaf names differ from the port's:
 :meth:`Checkpointer.restore_tree` reads any checkpoint into nested dicts,
@@ -33,6 +40,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import from_full, is_dtensor
 
 # numpy has no bf16 or fp8: store the raw bits, the logical dtype in the
 # index
@@ -92,6 +101,8 @@ def _rebuild(like: Any, leaves: Iterator[Any]) -> Any:
 def _host_array(x: Any) -> Tuple[np.ndarray, str]:
     """A host copy of one leaf (never a view of a tensor the caller may
     write in place), bf16 and fp8 as their bits, and its logical dtype."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         name = str(t.dtype).split(".")[-1]
@@ -112,6 +123,15 @@ def _load(folder: str, entry: Dict[str, Any]) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _sharded(state: Any) -> bool:
+    return any(is_dtensor(x) for _, x in flatten_with_path(state))
+
+
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -122,9 +142,17 @@ class Checkpointer:
     # ----------------------------------------------------------------- save
     def save(self, step: int, state: Any) -> str:
         self.wait()
-        return self._write(step, self._snapshot(state))
+        snap = self._snapshot(state)
+        if not _sharded(state):
+            return self._write(step, snap)
+        path = self._write(step, snap) if _rank() == 0 else None
+        torch.distributed.barrier()
+        return path or os.path.join(self.dir, f"step_{step:010d}")
 
     def save_async(self, step: int, state: Any) -> None:
+        if _sharded(state):      # a collective, and one writer
+            self.save(step, state)
+            return
         self.wait()
         snap = self._snapshot(state)
         self._thread = threading.Thread(
@@ -207,7 +235,11 @@ class Checkpointer:
             if tuple(t.shape) != shape:
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{tuple(t.shape)} vs {shape}")
-            if isinstance(ref, torch.Tensor):
+            if is_dtensor(ref):
+                out.append(from_full(
+                    t.to(device=ref.to_local().device, dtype=ref.dtype),
+                    ref.device_mesh, ref.placements))
+            elif isinstance(ref, torch.Tensor):
                 out.append(t.to(device=ref.device, dtype=ref.dtype))
             else:
                 out.append(type(ref)(t.item()))

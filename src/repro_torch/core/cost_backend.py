@@ -17,9 +17,9 @@ backend's :class:`~repro_torch.core.objective_schema.ObjectiveSchema` (DESIGN.md
   ``CHEAP_NAMES`` order, platform-tagged with the profile name.
 * :class:`TPURooflineBackend` — the three-term v5e roofline.  Besides scoring
   genomes it owns the shared :meth:`~TPURooflineBackend.roofline_terms`
-  helper (the reference's ``tpu_codesign`` and ``launch/roofline.py``
-  consume it; the port has neither yet), so the pod-scale roofline math
-  lives in exactly one place.
+  helper (``tpu_codesign`` consumes it; ``launch/roofline.py`` takes the
+  same ``hw_model.roofline`` with the H100's constants), so the
+  pod-scale roofline math lives in exactly one place.
 * :class:`MultiPlatformBackend` — a composite that scores one population
   against K member backends in a single call, sharing the decode/tabulation
   and the platform-independent Eq. 1-4 intermediates

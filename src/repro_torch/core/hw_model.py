@@ -152,11 +152,16 @@ class RooflineTerms:
 
 
 def roofline(flops: float, bytes_hbm: float, bytes_collective: float,
-             chips: int) -> RooflineTerms:
+             chips: int, peak_flops: float = PEAK_FLOPS_BF16,
+             hbm_bw: float = HBM_BW, link_bw: float = ICI_BW
+             ) -> RooflineTerms:
+    """The three-term roofline of pod totals over ``chips``, by default
+    with the v5e constants above (``launch/roofline.py`` passes the
+    H100's)."""
     return RooflineTerms(
-        compute_s=flops / (chips * PEAK_FLOPS_BF16),
-        memory_s=bytes_hbm / (chips * HBM_BW),
-        collective_s=bytes_collective / (chips * ICI_BW),
+        compute_s=flops / (chips * peak_flops),
+        memory_s=bytes_hbm / (chips * hbm_bw),
+        collective_s=bytes_collective / (chips * link_bw),
         flops=flops, bytes_hbm=bytes_hbm,
         bytes_collective=bytes_collective, chips=chips,
     )

@@ -18,7 +18,11 @@ import functools
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels._launches import count_launch
+from repro_torch.kernels._launches import (
+    count_launch,
+    is_fake,
+    record_fake_call,
+)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -77,6 +81,20 @@ def _check(q, k, v, kv_len, rows: int) -> None:
         raise ValueError("q, k, v and kv_len must be contiguous")
 
 
+def _record_fake(name: str, q, kvh: int, span: int, blocks: int = 0
+                 ) -> None:
+    """A fake call's work by the bound's formula (chip_smoke.py:
+    ``bound_ms``): kv_len has no values here, so every row attends to all
+    ``span`` positions of its cache; 4 H hd flops a position; q read and
+    the output written, K and V read at those positions, kv_len and the
+    ``blocks`` table entries a row read."""
+    b, h, hd = q.shape
+    item = q.element_size()
+    record_fake_call(name, 4 * h * hd * b * span,
+                     2 * q.numel() * item + 2 * b * span * kvh * hd * item
+                     + 4 * b + 4 * b * blocks)
+
+
 def _cuda_ready(name: str, q, k, v) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"no {name} for device {q.device}")
@@ -90,6 +108,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len: (B,) int32 valid prefix lengths (>= 1).  Returns (B,H,hd) in
     q's dtype.  ``decode_attention.launches`` counts kernel launches."""
     _check(q, k, v, kv_len, q.shape[0])
+    if is_fake(q, k, v, kv_len):
+        _record_fake("decode_attention", q, k.shape[2], k.shape[1])
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len)
     _cuda_ready("decode_attention", q, k, v)
@@ -133,6 +154,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if not 0 < tables.shape[1] <= MAX_TABLE_BLOCKS:
         raise ValueError(f"{tables.shape[1]} table blocks a row (supported "
                          f"1..{MAX_TABLE_BLOCKS})")
+    if is_fake(q, k_pages, v_pages, tables, kv_len):
+        _record_fake("paged_decode_attention", q, k_pages.shape[2],
+                     tables.shape[1] * k_pages.shape[1], tables.shape[1])
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, tables,
                                           kv_len)

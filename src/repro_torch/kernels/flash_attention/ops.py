@@ -18,7 +18,11 @@ import functools
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels._launches import count_launch
+from repro_torch.kernels._launches import (
+    count_launch,
+    is_fake,
+    record_fake_call,
+)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 112, 128)
@@ -73,6 +77,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must share one device")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
+    if is_fake(q, k, v):
+        # the bound's formula (chip_smoke.py: flash_flops, flash_bound_ms)
+        if not causal:
+            pairs = sq * sk
+        elif sq <= sk:
+            pairs = sq * (sq + 1) // 2
+        else:
+            pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+        record_fake_call("flash_attention", 4 * hd * h * b * pairs,
+                         (2 * q.numel() + 2 * k.numel()) * q.element_size())
+        return torch.empty_like(q)
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % _TMA_ALIGN for t in (q, k, v)):
         raise ValueError(f"bfloat16 q, k and v must start on a "

@@ -23,7 +23,11 @@ import functools
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels._launches import count_launch
+from repro_torch.kernels._launches import (
+    count_launch,
+    is_fake,
+    record_fake_call,
+)
 from repro_torch.kernels.moe_gmm.ref import gmm_dw_ref, gmm_dx_ref, gmm_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,7 +68,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x and w must share one device")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not is_fake(x, w):
         raise ValueError(f"no gmm for device {x.device}")
 
 
@@ -84,13 +88,27 @@ def _launch(shape, like: torch.Tensor, call) -> torch.Tensor:
     return out
 
 
+def _fake(shape, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A fake call (the forward, dX or dW): 2 E C D F flops; its two
+    operands read and its output of ``shape`` written once, which for
+    each of the three is one X (E, C, D), one W (E, D, F) and one Y (E, C,
+    F) (chip_smoke.py: gmm_bound_ms, gmm_grad_bound_ms)."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    record_fake_call("gmm", 2 * e * c * d * f,
+                     (e * c * d + e * d * f + e * c * f) * x.element_size())
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One grouped matmul of checked operands: the plain version for CPU
     tensors, one launch of the kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return gmm_ref(x, w)
     e, c, d = x.shape
     f = w.shape[2]
+    if is_fake(x, w):
+        return _fake((e, c, f), x, w)
+    if x.device.type == "cpu":
+        return gmm_ref(x, w)
     forward, _ = _launchers()
     return _launch((e, c, f), x, lambda out, stream, path: forward(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
@@ -101,10 +119,12 @@ def _grad(which: int, x: torch.Tensor, w: torch.Tensor,
           dy: torch.Tensor) -> torch.Tensor:
     """dX = dY W^T (``_DX``) or dW = X^T dY (``_DW``) of contiguous
     operands: the plain version for CPU tensors, one launch for CUDA."""
-    if dy.device.type == "cpu":
-        return gmm_dx_ref(dy, w) if which == _DX else gmm_dw_ref(x, dy)
     e, c, d = x.shape
     f = w.shape[2]
+    if is_fake(x, w, dy):
+        return _fake((e, c, d) if which == _DX else (e, d, f), x, w)
+    if dy.device.type == "cpu":
+        return gmm_dx_ref(dy, w) if which == _DX else gmm_dw_ref(x, dy)
     a, b = (dy, w) if which == _DX else (x, dy)
     _, backward = _launchers()
     return _launch((e, c, d) if which == _DX else (e, d, f), x,

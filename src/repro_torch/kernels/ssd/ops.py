@@ -17,7 +17,11 @@ from typing import Tuple
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels._launches import count_launch
+from repro_torch.kernels._launches import (
+    count_launch,
+    is_fake,
+    record_fake_call,
+)
 from repro_torch.kernels.ssd.ref import ssd_chunked
 
 STATE_SIZES = (8, 16, 32, 64, 128)   # N the kernel is built for
@@ -89,6 +93,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     what the kernel does not take, so what runs on the CPU runs on the
     card."""
     _check(x, dt, a_neg, b_mat, c_mat, chunk)
+    if is_fake(x, dt, a_neg, b_mat, c_mat):
+        # the bound's formula (chip_smoke.py: ssd_bound_ms)
+        bsz, length, h, p = x.shape
+        n = b_mat.shape[3]
+        record_fake_call(
+            "ssd_scan", 4 * bsz * length * h * n * p,
+            (2 * x.numel() + 2 * b_mat.numel()) * x.element_size()
+            + bsz * length * h * 4 + h * 4 + bsz * h * n * p * 4)
+        return torch.empty_like(x), torch.empty(
+            (bsz, h, n, p), dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk)
     if x.device.type != "cuda":

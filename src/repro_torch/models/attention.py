@@ -19,15 +19,32 @@ Decode writes the new K/V row into the cache or pool *in place* (the
 reference's ``dynamic_update_slice`` and ``.at[].set`` return new arrays);
 the functions still return the caches so call sites read like the
 reference's.
+
+Under a mesh (DTensor inputs) every kernel call runs on this rank's local
+shards (:func:`repro_torch.distributed.sharding.local_call`): q's heads
+split over the ``heads`` rule's mesh axis, batch over ``batch``'s, and
+k and v replicated over the head axis (the ``kv_heads`` rule is None), of
+which each rank hands the kernel the KV heads its q heads read (qwen3-4b
+at 16-way TP: 2 q heads of 1 KV head a rank).  The kernel takes a whole
+``head_dim``, so a decode cache sharded on ``head_dim`` (the ``head_dim``
+rule) is all-gathered over that axis at each call, one layer at a time:
+the dry run counts those bytes as all-gather traffic.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    local_call,
+    logical_placements,
+    mesh_rank,
+    replicated_like,
+)
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention,
     paged_decode_attention,
@@ -66,6 +83,25 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=dev)
+    return p
+
+
+def attention_specs(cfg: ModelConfig, prefix: Tuple = ()
+                    ) -> Dict[str, Tuple]:
+    """Logical axes per param dim, as ``repro``'s."""
+    p = {
+        "q": prefix + ("embed", "heads"),
+        "k": prefix + ("embed", "kv_heads"),
+        "v": prefix + ("embed", "kv_heads"),
+        "o": prefix + ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        p["q_b"] = prefix + ("heads",)
+        p["k_b"] = prefix + ("kv_heads",)
+        p["v_b"] = prefix + ("kv_heads",)
+    if cfg.qk_norm:
+        p["q_norm"] = prefix + (None,)
+        p["k_norm"] = prefix + (None,)
     return p
 
 
@@ -169,10 +205,22 @@ def chunked_attention(
 # ---------------------------------------------------------------------------
 
 
+def _heads(y: torch.Tensor, n: int, hd: int, axis: str) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd).  Under a mesh the flattened dim is
+    first placed as the rule for ``axis`` says where ``n`` heads split
+    evenly, else whole: DTensor cannot view a split that cuts a head."""
+    b, s, _ = y.shape
+    if is_dtensor(y):
+        pl = logical_placements((b, s, n), ("batch", "seq", axis),
+                                y.device_mesh)
+        if tuple(y.placements) != tuple(pl):
+            y = y.redistribute(y.device_mesh, pl)
+    return y.reshape(b, s, n, hd)
+
+
 def _project_q(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = (x @ p["q"].to(x.dtype)).reshape(b, s, h, hd)
+    q = _heads(x @ p["q"].to(x.dtype), h, hd, "heads")
     if cfg.qkv_bias:
         q = q + p["q_b"].to(x.dtype).reshape(h, hd)
     if cfg.qk_norm:
@@ -185,9 +233,8 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     """q of ``x``; k and v of ``kv_src`` (cross-attention), else of ``x``."""
     kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     src = x if kv_src is None else kv_src
-    b, sk, _ = src.shape
-    k = (src @ p["k"].to(x.dtype)).reshape(b, sk, kvh, hd)
-    v = (src @ p["v"].to(x.dtype)).reshape(b, sk, kvh, hd)
+    k = _heads(src @ p["k"].to(x.dtype), kvh, hd, "kv_heads")
+    v = _heads(src @ p["v"].to(x.dtype), kvh, hd, "kv_heads")
     if cfg.qkv_bias:
         k = k + p["k_b"].to(x.dtype).reshape(kvh, hd)
         v = v + p["v_b"].to(x.dtype).reshape(kvh, hd)
@@ -198,6 +245,9 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
 
 def _rotate(q, k, positions: torch.Tensor, cfg: ModelConfig):
     """RoPE at (B, S) positions, or M-RoPE at (3, B, S) ones."""
+    axes = ("batch", "seq") if positions.dim() == 2 else (None, "batch",
+                                                          "seq")
+    positions = replicated_like(positions, q, axes)
     if cfg.mrope:
         return (apply_mrope(q, positions, cfg.rope_theta,
                             cfg.mrope_sections),
@@ -224,10 +274,49 @@ def _grad_taken(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def _rank_heads(q_pl, mesh, h: int, kvh: int, dim: int):
+    """(q's placements, this rank's slice of the KV heads): the KV heads
+    the rank's q heads read under GQA.  Where a rank's q heads would
+    straddle KV-head groups unevenly, q's heads are not split."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    idx, n = mesh_rank(mesh, q_pl, dim)
+    if n == 1:
+        return q_pl, slice(None)
+    h_loc, rep = h // n, h // kvh
+    if h_loc % rep and rep % h_loc:
+        return [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                for p in q_pl], slice(None)
+    return q_pl, slice(idx * h_loc // rep, ((idx + 1) * h_loc - 1) // rep + 1)
+
+
+def _gqa_call(fn, q, k, v, rest, q_axes, kv_axes, rest_axes, heads_at):
+    """``fn(q, k, v, *rest)`` on local shards: q's heads (its dim
+    ``heads_at``) split as the rules say, k and v replicated over that
+    axis and cut to the rank's KV heads (their dim 2)."""
+    mesh = (q if is_dtensor(q) else k).device_mesh
+    q_pl = logical_placements(q.shape, q_axes, mesh)
+    q_pl, kv = _rank_heads(q_pl, mesh, q.shape[heads_at], k.shape[2],
+                           heads_at)
+    kv_pl = logical_placements(k.shape, kv_axes, mesh)
+    rest_pl = [logical_placements(t.shape, a, mesh)
+               for t, a in zip(rest, rest_axes)]
+
+    def local(ql, kl, vl, *rl):
+        return fn(ql.contiguous(), kl[:, :, kv].contiguous(),
+                  vl[:, :, kv].contiguous(), *(t.contiguous() for t in rl))
+    return local_call(local, (q, k, v, *rest), (q_pl, kv_pl, kv_pl,
+                                                *rest_pl), (q_pl,))
+
+
 def _attend(q, k, v, cfg: ModelConfig, causal: bool) -> torch.Tensor:
     """A full-sequence product: the flash-attention op where no gradient
     is taken, ``chunked_attention`` (the reference's function) under
     autograd, since the flash kernel has no backward."""
+    if is_dtensor(q):
+        return _gqa_call(lambda ql, kl, vl: _attend(ql, kl, vl, cfg, causal),
+                         q, k, v, (), ("batch", None, "heads", None),
+                         ("batch", None, None, None), (), 2)
     if _grad_taken(q, k, v):
         return chunked_attention(q, k, v, causal=causal,
                                  chunk=cfg.attn_chunk)
@@ -271,6 +360,28 @@ def cross_attention_prefill(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return out.reshape(b, s, -1) @ p["o"].to(x.dtype), (ck, cv)
 
 
+def _decode(q, k_cache, v_cache, kv_len) -> torch.Tensor:
+    """The decode-attention op: q (B, H, hd) over caches (B, S, KVH, hd)
+    to ``kv_len`` (B,); on local shards under a mesh."""
+    if is_dtensor(q) or is_dtensor(k_cache):
+        return _gqa_call(decode_attention, q, k_cache, v_cache, (kv_len,),
+                         ("batch", "heads", None),
+                         ("batch", None, None, None), (("batch",),), 1)
+    return decode_attention(q, k_cache, v_cache, kv_len)
+
+
+def _paged_decode(q, k_pool, v_pool, tables, kv_len) -> torch.Tensor:
+    """The paged decode-attention op: q (B, H, hd) over pools (P, BS, KVH,
+    hd) through ``tables`` (B, NB); on local shards under a mesh (the
+    pools whole on every rank but for their KV heads)."""
+    if is_dtensor(q) or is_dtensor(k_pool):
+        return _gqa_call(paged_decode_attention, q, k_pool, v_pool,
+                         (tables, kv_len), ("batch", "heads", None),
+                         (None, None, None, None),
+                         (("batch", None), ("batch",)), 1)
+    return paged_decode_attention(q, k_pool, v_pool, tables, kv_len)
+
+
 def cross_attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
                            ck: torch.Tensor, cv: torch.Tensor,
                            cfg: ModelConfig) -> torch.Tensor:
@@ -284,8 +395,20 @@ def cross_attention_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     q = _project_q(p, x, cfg)[:, 0]
     kv_len = torch.full((b,), ck.shape[1], dtype=torch.int32,
                         device=x.device)
-    out = decode_attention(q, ck, cv, kv_len)
+    out = _decode(q, ck, cv, kv_len)
     return out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
+
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, S, KVH, hd) -> (B, S + pad, KVH, hd), zeros after the rows;
+    under a mesh on local shards, each holding whole rows."""
+    if not pad:
+        return t
+    if is_dtensor(t):
+        pl = logical_placements(t.shape, ("batch", None, "kv_heads", None),
+                                t.device_mesh)
+        return local_call(lambda x: _pad_rows(x, pad), (t,), (pl,), (pl,))
+    return F.pad(t, (0, 0, 0, 0, 0, pad))
 
 
 def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
@@ -303,9 +426,7 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
             positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
     out = _attend(q, k, v, cfg, causal=True)
-    pad = cache_len - s
-    kc = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
-    vc = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
+    kc, vc = _pad_rows(k, cache_len - s), _pad_rows(v, cache_len - s)
     y = out.reshape(b, s, -1) @ p["o"].to(x.dtype)
     return y, (kc, vc)
 
@@ -331,7 +452,7 @@ def attention_decode(
     k_cache[:, pos_w] = k[:, 0]
     v_cache[:, pos_w] = v[:, 0]
     kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
-    out = decode_attention(q[:, 0], k_cache, v_cache, kv_len)[:, None]
+    out = _decode(q[:, 0], k_cache, v_cache, kv_len)[:, None]
     y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
     return y, k_cache, v_cache
 
@@ -362,7 +483,7 @@ def attention_decode_slotted(
     rows = torch.arange(b, device=x.device)
     k_cache[rows, pos_w] = k[:, 0]
     v_cache[rows, pos_w] = v[:, 0]
-    out = decode_attention(q[:, 0], k_cache, v_cache, lens + 1)[:, None]
+    out = _decode(q[:, 0], k_cache, v_cache, lens + 1)[:, None]
     y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
     return y, k_cache, v_cache
 
@@ -415,7 +536,6 @@ def attention_decode_paged(
     rows, blk, off = write
     k_pool.index_put_((blk, off), k[rows, 0])
     v_pool.index_put_((blk, off), v[rows, 0])
-    out = paged_decode_attention(q[:, 0], k_pool, v_pool, tables,
-                                 lens + 1)[:, None]
+    out = _paged_decode(q[:, 0], k_pool, v_pool, tables, lens + 1)[:, None]
     y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
     return y, k_pool, v_pool

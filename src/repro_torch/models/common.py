@@ -4,8 +4,8 @@ Counterpart of ``repro/models/common.py`` (norms, ``rope_freqs``,
 ``apply_rope``, ``apply_mrope``, ``sinusoidal_positions``, init), and of
 ``repro/models/transformer.py: _remat``.  Parameters are plain nested
 dicts of tensors with the reference's ``(in, out)`` matrix layout, so
-``x @ W`` reads the same in both packages.  The logical-axis specs wait
-for the TPU-pod tooling.
+``x @ W`` reads the same in both packages.  ``norm_specs`` gives a norm's
+logical axes, as the reference's.
 """
 from __future__ import annotations
 
@@ -19,6 +19,13 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+
+from repro_torch.distributed.sharding import (
+    axis_rules,
+    current_mesh,
+    current_rules,
+)
+from repro_torch.kernels._launches import is_fake
 
 # ---------------------------------------------------------------------------
 # Norms (f32 inside, cast back to the input dtype)
@@ -54,6 +61,14 @@ def init_norm(kind: str, d: int, device: torch.device
     p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
     if kind == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def norm_specs(kind: str) -> Dict[str, Tuple]:
+    """Logical axis names of a norm's params, as ``repro``'s."""
+    p = {"scale": (None,)}
+    if kind == "layernorm":
+        p["bias"] = (None,)
     return p
 
 
@@ -141,6 +156,8 @@ def _trunc_normal(shape: Tuple[int, ...], std: float,
     # jax.random.truncated_normal(-2, 2) * std truncates at +-2 sigma;
     # trunc_normal_ takes absolute bounds, hence a/b scaled by std.
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if is_fake(t):      # shapes only, under FakeTensorMode (the dry run)
+        return t
     return torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std,
                                        b=2.0 * std, generator=gen)
 
@@ -179,14 +196,24 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _under_rules(rules, mesh, fn: Callable, *args) -> Any:
+    with axis_rules(rules, mesh):
+        return fn(*args)
+
+
 def remat_call(mode: str, fn: Callable, *args) -> Any:
     """``fn(*args)`` under ``cfg.remat``: ``"full"`` saves only the inputs
     and recomputes the rest in the backward (``jax.checkpoint``),
     ``"dots"`` also saves the products without batch dims, ``"none"``
     saves everything.  Without a gradient (serving, ``no_grad``) it is a
-    plain call whatever the mode."""
+    plain call whatever the mode.  The recomputation runs under the
+    sharding rules of the call (it may run on autograd's own thread, where
+    the thread-local rules are not installed)."""
     if mode == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    rules, mesh = current_rules(), current_mesh()
+    if mesh is not None:
+        fn = functools.partial(_under_rules, rules, mesh, fn)
     if mode == "dots":
         return checkpoint(fn, *args, use_reentrant=False,
                           context_fn=functools.partial(

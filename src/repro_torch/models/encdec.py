@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.attention import (
     attention_block,
     attention_decode,
@@ -32,6 +33,7 @@ from repro_torch.models.attention import (
     cross_attention_block,
     cross_attention_decode,
     cross_attention_prefill,
+    attention_specs,
     init_attention,
 )
 from repro_torch.models.common import (
@@ -39,11 +41,12 @@ from repro_torch.models.common import (
     cast_tree,
     embed_init,
     init_norm,
+    norm_specs,
     remat_call,
     sinusoid,
     sinusoidal_positions,
 )
-from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.mlp import init_mlp, mlp_block, mlp_specs
 from repro_torch.models.transformer import embed_tokens
 
 
@@ -95,6 +98,27 @@ def init_encdec(seed: int, cfg: ModelConfig, device: DeviceLike = None
     }
 
 
+def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axis names of :func:`init_encdec`'s params: ``repro``'s
+    leaf for leaf, without its stacked ``layers`` prefix."""
+    enc = {
+        "attn_norm": norm_specs(cfg.norm),
+        "attn": attention_specs(cfg),
+        "mlp_norm": norm_specs(cfg.norm),
+        "mlp": mlp_specs(cfg),
+    }
+    dec = dict(enc)
+    dec["cross_norm"] = norm_specs(cfg.norm)
+    dec["cross"] = attention_specs(cfg)
+    return {
+        "embed": ("vocab", "embed_unsharded"),
+        "enc_layers": [enc] * cfg.n_layers,
+        "enc_norm": norm_specs(cfg.norm),
+        "dec_layers": [dec] * cfg.n_dec_layers,
+        "final_norm": norm_specs(cfg.norm),
+    }
+
+
 def init_encdec_cache(cfg: ModelConfig, batch: int, cache_len: int,
                       enc_len: int, dtype: Optional[torch.dtype] = None,
                       device: DeviceLike = None) -> Dict[str, Any]:
@@ -134,8 +158,9 @@ def _enc_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     h = x + attention_block(
         lp["attn"], apply_norm(cfg.norm, x, lp["attn_norm"], cfg.norm_eps),
         cfg, causal=False, use_rope=False)
-    return h + mlp_block(
+    h = h + mlp_block(
         lp["mlp"], apply_norm(cfg.norm, h, lp["mlp_norm"], cfg.norm_eps), cfg)
+    return logical_constraint(h, "batch", "seq", None)
 
 
 def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig
@@ -145,6 +170,7 @@ def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig
     x = frames.to(torch_dtype(cfg.dtype))
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)
+    x = logical_constraint(x, "batch", "seq", None)
     for lp in params["enc_layers"]:
         x = remat_call(_remat(cfg), _enc_layer, lp, x, cfg)
     return apply_norm(cfg.norm, x, params["enc_norm"], cfg.norm_eps)
@@ -158,8 +184,9 @@ def encode(params: Dict[str, Any], frames: torch.Tensor, cfg: ModelConfig
 def _dec_inputs(params, dec_tokens: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
     x = embed_tokens(params, dec_tokens, cfg)
-    return x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                    x.device).to(x.dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)
+    return logical_constraint(x, "batch", "seq", None)
 
 
 def _dec_layer(lp: Dict[str, Any], x: torch.Tensor, enc_out: torch.Tensor,
@@ -170,8 +197,9 @@ def _dec_layer(lp: Dict[str, Any], x: torch.Tensor, enc_out: torch.Tensor,
     h = h + cross_attention_block(
         lp["cross"], apply_norm(cfg.norm, h, lp["cross_norm"], cfg.norm_eps),
         enc_out, cfg)
-    return h + mlp_block(
+    h = h + mlp_block(
         lp["mlp"], apply_norm(cfg.norm, h, lp["mlp_norm"], cfg.norm_eps), cfg)
+    return logical_constraint(h, "batch", "seq", None)
 
 
 def _decode_hidden(params, dec_tokens: torch.Tensor, enc_out: torch.Tensor,
@@ -192,7 +220,8 @@ def decode_train(params, dec_tokens: torch.Tensor, enc_out: torch.Tensor,
 
 def encdec_unembed(params, x: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
-    return x @ params["embed"].T.to(x.dtype)      # tied
+    logits = x @ params["embed"].T.to(x.dtype)      # tied
+    return logical_constraint(logits, "batch", "seq", "vocab")
 
 
 def encdec_hidden(params, cfg: ModelConfig, *, frames: torch.Tensor,

@@ -35,12 +35,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.attention import (
     attention_block,
     attention_decode,
     attention_decode_paged,
     attention_decode_slotted,
     attention_prefill,
+    attention_specs,
     init_attention,
     paged_write_index,
 )
@@ -49,6 +51,7 @@ from repro_torch.models.common import (
     cast_tree,
     embed_init,
     init_norm,
+    norm_specs,
     remat_call,
 )
 from repro_torch.models.mamba2 import (
@@ -56,8 +59,9 @@ from repro_torch.models.mamba2 import (
     mamba2_block,
     mamba2_decode,
     mamba2_mix,
+    mamba2_specs,
 )
-from repro_torch.models.mlp import init_mlp
+from repro_torch.models.mlp import init_mlp, mlp_specs
 from repro_torch.models.transformer import (
     _attn_in,
     _mlp_residual,
@@ -113,6 +117,30 @@ def init_hybrid(seed: int, cfg: ModelConfig, device: DeviceLike = None
     return params
 
 
+def hybrid_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axis names of :func:`init_hybrid`'s params: ``repro``'s
+    leaf for leaf, without its stacked ``layer_groups``/``layers``
+    prefixes (``groups`` is a list of lists here, ``tail`` a list)."""
+    n_groups, period, tail = _layout(cfg)
+    lp = {"norm": norm_specs(cfg.norm), "mamba": mamba2_specs(cfg)}
+    specs: Dict[str, Any] = {
+        "embed": ("vocab", "embed_unsharded"),
+        "final_norm": norm_specs(cfg.norm),
+        "unembed": ("embed_unsharded", "vocab"),
+    }
+    if n_groups:
+        specs["groups"] = [[lp] * period for _ in range(n_groups)]
+        specs["shared"] = {
+            "attn_norm": norm_specs(cfg.norm),
+            "attn": attention_specs(cfg),
+            "mlp_norm": norm_specs(cfg.norm),
+            "mlp": mlp_specs(cfg),
+        }
+    if tail:
+        specs["tail"] = [lp] * tail
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # Forward (training)
 # ---------------------------------------------------------------------------
@@ -123,7 +151,8 @@ def _norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _mamba_layer_fwd(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + mamba2_block(lp["mamba"], _norm(lp["norm"], x, cfg), cfg)
+    out = x + mamba2_block(lp["mamba"], _norm(lp["norm"], x, cfg), cfg)
+    return logical_constraint(out, "batch", "seq", None)
 
 
 def _group_fwd(group, shared, x: torch.Tensor, cfg: ModelConfig,
@@ -132,7 +161,8 @@ def _group_fwd(group, shared, x: torch.Tensor, cfg: ModelConfig,
         x = _mamba_layer_fwd(lp, x, cfg)
     h = x + attention_block(shared["attn"], _attn_in(shared, x, cfg), cfg,
                             positions=positions, causal=True)
-    return _mlp_residual(shared, h, cfg)
+    return logical_constraint(_mlp_residual(shared, h, cfg),
+                              "batch", "seq", None)
 
 
 def hybrid_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -145,7 +175,8 @@ def hybrid_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
     ``"none"``, as the reference checkpoints its two scan bodies (its
     ``"dots"`` is ``"full"`` here)."""
     mode = "none" if cfg.remat == "none" else "full"
-    x = embed_tokens(params, tokens, cfg)
+    x = logical_constraint(embed_tokens(params, tokens, cfg),
+                           "batch", "seq", None)
     shared = params.get("shared")
     for group in params.get("groups", []):
         x = remat_call(mode, _group_fwd, group, shared, x, cfg, positions)
@@ -157,7 +188,8 @@ def hybrid_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
 
 def hybrid_unembed(params, x: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
-    return x @ params["unembed"].to(x.dtype)
+    logits = x @ params["unembed"].to(x.dtype)
+    return logical_constraint(logits, "batch", "seq", "vocab")
 
 
 def hybrid_forward(params: Dict[str, Any], cfg: ModelConfig, *,

@@ -19,6 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    local_call,
+    logical_placements,
+)
 from repro_torch.kernels.ssd.ops import ssd_scan
 from repro_torch.kernels.ssd.ref import ssd_chunked
 from repro_torch.models.common import dense_init
@@ -26,6 +31,20 @@ from repro_torch.models.common import dense_init
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+
+
+def mamba2_specs(cfg: ModelConfig, prefix: Tuple = ()) -> Dict[str, Tuple]:
+    """Logical axis names of each Mamba-2 param, as ``repro``'s."""
+    return {
+        "in_proj": prefix + ("embed", "heads"),
+        "conv_w": prefix + (None, "heads"),
+        "conv_b": prefix + ("heads",),
+        "dt_bias": prefix + ("heads",),
+        "A_log": prefix + ("heads",),
+        "D": prefix + ("heads",),
+        "norm_scale": prefix + ("heads",),
+        "out_proj": prefix + ("heads", "embed"),
+    }
 
 
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig
@@ -65,7 +84,15 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, L, C), w: (K, C)."""
+    """Depthwise causal conv. x: (B, L, C), w: (K, C).  Under a mesh on
+    local shards: the batch split, each row's L and C whole."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        pl = logical_placements(x.shape, ("batch", None, None), mesh)
+        whole = [Replicate()] * mesh.ndim
+        return local_call(_causal_conv, (x, w, b), (pl, whole, whole), (pl,))
     k, length = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
     acc = torch.zeros_like(x)
@@ -122,14 +149,44 @@ def mamba2_mix(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
                               p["conv_b"].to(x.dtype)))
     xs, b_mat, c_mat = _split_xbc(xbc, cfg)
     dt_full, a_neg = _dt_and_a(p, dt)
-    args = (xs, dt_full.contiguous(), a_neg.float(), b_mat, c_mat,
-            cfg.ssm_chunk)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values())):
-        y, state = ssd_chunked(*args)      # autograd: the kernel has none
-    else:
-        y, state = ssd_scan(*args)
+    y, state = _scan(xs, dt_full, a_neg.float(), b_mat, c_mat, cfg)
     return _gated_out(p, y, xs, z, cfg), conv_state, state
+
+
+def _ssd_placements(xs, dt, a_neg, b_mat, cfg: ModelConfig):
+    """Placements of an SSD step's or scan's operands under a mesh: the
+    heads split as the ``heads`` rule says where one group of B and C
+    serves them all (``ssm_groups == 1``), B and C whole on every rank of
+    that axis, the batch split.  Returns those of (x, dt, a_neg, B and C,
+    the state (B, H, N, P))."""
+    from torch.distributed.tensor import Shard
+
+    mesh = xs.device_mesh
+    axes = ("batch", None, "heads" if cfg.ssm_groups == 1 else None, None)
+    x_pl = logical_placements(xs.shape, axes, mesh)
+    st_pl = [Shard(1) if isinstance(pl, Shard) and pl.dim == 2 else pl
+             for pl in x_pl]
+    return (x_pl, logical_placements(dt.shape, axes[:3], mesh),
+            logical_placements(a_neg.shape, axes[2:3], mesh),
+            logical_placements(b_mat.shape, ("batch", None, None, None),
+                               mesh), st_pl)
+
+
+def _scan(xs, dt, a_neg, b_mat, c_mat, cfg: ModelConfig):
+    """The SSD scan of a full sequence: the kernel's op, or its plain
+    version under autograd; on local shards under a mesh
+    (:func:`_ssd_placements`)."""
+    if is_dtensor(xs):
+        x_pl, dt_pl, a_pl, bc_pl, st_pl = _ssd_placements(xs, dt, a_neg,
+                                                          b_mat, cfg)
+        return local_call(lambda *t: _scan(*t, cfg),
+                          (xs, dt, a_neg, b_mat, c_mat),
+                          (x_pl, dt_pl, a_pl, bc_pl, bc_pl), (x_pl, st_pl))
+    args = (xs, dt.contiguous(), a_neg, b_mat, c_mat, cfg.ssm_chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, dt, a_neg, b_mat, c_mat)):
+        return ssd_chunked(*args)      # autograd: the kernel has none
+    return ssd_scan(*args)
 
 
 def mamba2_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -178,6 +235,12 @@ def mamba2_decode(
         + p["conv_b"].to(x.dtype)
     xs, b_mat, c_mat = _split_xbc(F.silu(conv_out)[:, None], cfg)
     dt_full, a_neg = _dt_and_a(p, dt)
-    y, ssm_state = ssd_decode_step(xs, dt_full, a_neg, b_mat, c_mat,
-                                   ssm_state)
+    args = (xs, dt_full, a_neg, b_mat, c_mat, ssm_state)
+    if is_dtensor(xs):
+        x_pl, dt_pl, a_pl, bc_pl, st_pl = _ssd_placements(xs, dt_full, a_neg,
+                                                          b_mat, cfg)
+        y, ssm_state = local_call(ssd_decode_step, args, (
+            x_pl, dt_pl, a_pl, bc_pl, bc_pl, st_pl), (x_pl, st_pl))
+    else:
+        y, ssm_state = ssd_decode_step(*args)
     return _gated_out(p, y, xs, z, cfg), win[:, 1:], ssm_state

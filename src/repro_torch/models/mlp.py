@@ -3,7 +3,7 @@
 Counterpart of ``repro/models/mlp.py``."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,22 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0
         "up_b": torch.zeros((f,), dtype=torch.float32, device=gen.device),
         "down": dense_init(gen, (f, d), f),
         "down_b": torch.zeros((d,), dtype=torch.float32, device=gen.device),
+    }
+
+
+def mlp_specs(cfg: ModelConfig, prefix: Tuple = ()) -> Dict[str, Tuple]:
+    """Logical axis names of each MLP param, as ``repro``'s."""
+    if cfg.act == "swiglu":
+        return {
+            "gate": prefix + ("embed", "mlp"),
+            "up": prefix + ("embed", "mlp"),
+            "down": prefix + ("mlp", "embed"),
+        }
+    return {
+        "up": prefix + ("embed", "mlp"),
+        "up_b": prefix + ("mlp",),
+        "down": prefix + ("mlp", "embed"),
+        "down_b": prefix + (None,),
     }
 
 

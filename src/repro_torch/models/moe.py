@@ -1,8 +1,8 @@
 """Routed mixture-of-experts with sort-based, capacity-bounded dispatch.
 
-Counterpart of ``repro/models/moe.py``, its sort path (``moe_block``
-without a mesh; ``moe_block_ep``'s shard_map all-to-all waits for the
-TPU-pod tooling):
+Counterpart of ``repro/models/moe.py``, its sort path (``moe_block``;
+``moe_block_ep``'s shard_map all-to-all is not ported, so a config with
+``moe_impl="ep_a2a"`` takes the sort path here, on a mesh too):
 
 1. top-k routing per token (ties to the lower expert id, as XLA's top_k);
 2. stable-sort the (token, expert) pairs by expert id;
@@ -20,6 +20,15 @@ receives one row; dropped pairs go to a spare row past the buffer), and
 the combine gathers each token's k rows and sums them over k in a fixed
 order.  Nothing in the block syncs with the host: ``cap`` is a Python int
 from the token count.
+
+Under a mesh (DTensor inputs) the block runs on local shards with the
+reference's sort path's semantics, which are global: every rank holds the
+whole token batch (an all-gather over the batch axes), routes it, sorts
+it and bounds each expert at the capacity of the global token count, as
+the one-device block does; each rank then runs ``gmm`` on its own experts
+(the ``experts`` rule's axis) and combines their rows, so the output is a
+sum over that axis (``Partial``), and the load-balance loss, which every
+rank computes whole, is entered as its share of that sum.
 """
 from __future__ import annotations
 
@@ -30,6 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    local_call,
+    logical_placements,
+    mesh_rank,
+)
 from repro_torch.kernels.moe_gmm import gmm
 from repro_torch.models.common import dense_init
 
@@ -95,15 +110,50 @@ def route(p: Dict[str, torch.Tensor], xf: torch.Tensor, cfg: ModelConfig
 def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar f32)."""
+    if is_dtensor(x):
+        return _moe_block_sharded(p, x, cfg)
+    return _moe_block(p, x, cfg)
+
+
+def _moe_block_sharded(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                       cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    w_pl = {k: logical_placements(p[k].shape, ("experts", None, None), mesh)
+            for k in ("gate", "up", "down")}
+    e_rank, e_ways = mesh_rank(mesh, w_pl["gate"], 0)
+    # the output and the aux loss: summands over the experts' axis
+    out_pl = [Partial() if isinstance(pl, Shard) else Replicate()
+              for pl in w_pl["gate"]]
+    keys = sorted(p)
+
+    def local(xl, *leaves):
+        y, aux = _moe_block(dict(zip(keys, leaves)), xl, cfg,
+                            experts=(e_rank, e_ways))
+        return y, aux / e_ways
+    return local_call(local, (x, *(p[k] for k in keys)),
+                      (rep, *(w_pl.get(k, rep) for k in keys)),
+                      (out_pl, out_pl))
+
+
+def _moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+               experts: Tuple[int, int] = (0, 1)
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block over the whole batch ``x``; ``experts = (i, n)``: ``p``'s
+    expert matrices are the i-th of n equal slices of the experts, and the
+    output sums only theirs."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
     xf = x.reshape(t, d)
-    probs, gates, experts = route(p, xf, cfg)
+    probs, gates, experts_of = route(p, xf, cfg)
 
     # Switch-style load-balance auxiliary loss; counts by comparison, not
     # by scatter, so the block stays free of atomics.
-    flat_e = experts.reshape(-1)                            # (T*k,)
+    flat_e = experts_of.reshape(-1)                         # (T*k,)
     counts = (flat_e[:, None] == torch.arange(e, device=x.device)).sum(0)
     aux = e * torch.sum(probs.mean(dim=0) * (counts.float() / (t * k)))
 
@@ -113,28 +163,31 @@ def moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     sorted_e = flat_e[order]
     seg_start = torch.cumsum(counts, 0) - counts            # (E,)
     pos = torch.arange(t * k, device=x.device) - seg_start[sorted_e]
-    keep = pos < cap
-    # each kept pair's row of the flattened (E*cap, D) buffer; dropped
-    # pairs all land on the spare row E*cap, which is cut off
-    slot = torch.where(keep, sorted_e * cap + pos, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    # kept: within capacity and one of the experts held here, [e0, e0+el)
+    el = e // experts[1]
+    e0 = experts[0] * el
+    keep = (pos < cap) & (sorted_e >= e0) & (sorted_e < e0 + el)
+    # each kept pair's row of the flattened (el*cap, D) buffer; the other
+    # pairs all land on the spare row el*cap, which is cut off
+    slot = torch.where(keep, (sorted_e - e0) * cap + pos, el * cap)
+    buf = torch.zeros((el * cap + 1, d), dtype=x.dtype, device=x.device)
     buf.index_put_((slot,), xf[order // k])
-    buf = buf[:e * cap].view(e, cap, d)
+    buf = buf[:el * cap].view(el, cap, d)
 
     # ---- expert FFN (the moe_gmm contraction) ---------------------------
     h = F.silu(gmm(buf, p["gate"].to(x.dtype))) \
         * gmm(buf, p["up"].to(x.dtype))
-    out_buf = gmm(h, p["down"].to(x.dtype)).view(e * cap, d)
+    out_buf = gmm(h, p["down"].to(x.dtype)).view(el * cap, d)
 
     # ---- combine: each pair's row in (token, k) order, summed over k ---
     slot_of = torch.empty_like(slot).scatter_(0, order, slot)
-    kept = slot_of < e * cap
+    kept = slot_of < el * cap
     vals = out_buf[torch.where(kept, slot_of, 0)]          # (T*k, D)
     contrib = vals * gates.reshape(-1, 1).to(x.dtype)
     contrib = torch.where(kept[:, None], contrib, torch.zeros_like(contrib))
     y = contrib.view(t, k, d).sum(dim=1)
 
-    if cfg.n_shared_experts:
+    if cfg.n_shared_experts and experts[0] == 0:   # once in the sum
         hs = F.silu(xf @ p["shared_gate"].to(x.dtype)) \
             * (xf @ p["shared_up"].to(x.dtype))
         y = y + hs @ p["shared_down"].to(x.dtype)

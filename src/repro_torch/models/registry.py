@@ -1,16 +1,20 @@
 """ModelBundle: one functional API over the ported architecture families.
 
-Counterpart of ``repro/models/registry.py``, holding the fields the
-serving and training paths read (the dry run's ``specs``, ``input_specs``
-and ``cache_shapes`` wait for the TPU-pod tooling).  Family dispatch
-happens once, here: the dense, MoE and VLM LM families, the SSM and hybrid
+Counterpart of ``repro/models/registry.py``.  Family dispatch happens
+once, here: the dense, MoE and VLM LM families, the SSM and hybrid
 families (mamba2, zamba2), and the encoder-decoder (whisper).  A VLM batch
 carries ``embeds`` (B, S, D) and ``positions`` (3, B, S) where an LM batch
 carries ``tokens``; an encoder-decoder batch carries ``frames`` (B, T, D)
 and ``dec_tokens`` (B, S_dec), and its bundle has no slotted or paged
 serving path, as the reference's has none.
 
-* ``init(seed, device) -> params``
+* ``init(seed, device) -> params`` (shapes only, no draw, under
+  ``FakeTensorMode``)
+* ``specs() -> tree of logical axes`` beside the params (``repro``'s
+  leaves without the stacked layer prefixes)
+* ``input_specs(cell) -> (tree of meta tensors, tree of logical axes)``
+  and ``cache_shapes(cell) -> tree of meta tensors`` (the dry run's I/O;
+  nothing is allocated); ``supports(cell)`` the assignment's skip rule
 * ``apply_train(params, batch) -> (logits, aux)`` — full teacher-forced pass
 * ``apply_hidden(params, batch) -> (hidden, aux)`` and
   ``unembed_chunk(params, x) -> logits`` — the chunked loss's halves
@@ -30,7 +34,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.shapes import ENCDEC_DECODE_ENC_LEN
+from repro_torch.configs.shapes import ENCDEC_DECODE_ENC_LEN, ShapeCell
+from repro_torch.device import torch_dtype
 from repro_torch.models import encdec as M_encdec
 from repro_torch.models import hybrid as M_hybrid
 from repro_torch.models import transformer as M_lm
@@ -40,6 +45,7 @@ from repro_torch.models import transformer as M_lm
 class ModelBundle:
     cfg: ModelConfig
     init: Callable[..., Any]
+    specs: Callable[[], Any]
     apply_train: Callable[[Any, Dict[str, Any]],
                           Tuple[torch.Tensor, torch.Tensor]]
     prefill: Callable[[Any, Dict[str, Any]], Tuple[torch.Tensor, Any]]
@@ -70,6 +76,61 @@ class ModelBundle:
     decode_paged: Optional[Callable] = None
     make_paged_cache: Optional[Callable] = None
     paged_cache_specs: Optional[Callable] = None
+
+    # ------------------------------------------------------------ dry-run io
+    def input_specs(self, cell: ShapeCell) -> Tuple[Dict[str, Any],
+                                                    Dict[str, Any]]:
+        """The batch of ``cell`` as meta tensors (``repro``'s shapes and
+        dtypes: int32 ids, ``cfg.dtype`` embeddings) and each leaf's
+        logical axes."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        dt = torch_dtype(cfg.dtype)
+
+        def tok(shape):
+            return torch.empty(shape, dtype=torch.int32, device="meta")
+
+        def emb(shape):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        if cell.kind == "decode":
+            return {"tokens": tok((b, 1))}, {"tokens": ("batch", None)}
+
+        if cfg.family == "vlm":
+            specs = {"embeds": emb((b, s, cfg.d_model)),
+                     "positions": tok((3, b, s))}
+            axes = {"embeds": ("batch", "seq", None),
+                    "positions": (None, "batch", "seq")}
+        elif cfg.family == "encdec":
+            sd = max(s // cfg.dec_ratio, 8)
+            specs = {"frames": emb((b, s, cfg.d_model)),
+                     "dec_tokens": tok((b, sd))}
+            axes = {"frames": ("batch", "seq", None),
+                    "dec_tokens": ("batch", "seq")}
+        else:
+            specs = {"tokens": tok((b, s))}
+            axes = {"tokens": ("batch", "seq")}
+
+        if cell.kind == "train":
+            if cfg.family == "encdec":
+                specs["labels"] = tok((b, max(s // cfg.dec_ratio, 8)))
+            else:
+                specs["labels"] = tok((b, s))
+            axes["labels"] = ("batch", "seq")
+        return specs, axes
+
+    def cache_shapes(self, cell: ShapeCell) -> Any:
+        """The decode cache of ``cell`` on the meta device (no
+        allocation)."""
+        return self.make_cache(cell.global_batch, cell.seq_len,
+                               device="meta")
+
+    def supports(self, cell: ShapeCell) -> Tuple[bool, str]:
+        """Assignment skip rules (DESIGN.md §4)."""
+        if cell.name == "long_500k" and not self.cfg.sub_quadratic:
+            return False, ("full-attention arch: 500k-token KV decode is the "
+                           "quadratic regime the assignment excludes")
+        return True, ""
 
 
 def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
@@ -117,6 +178,7 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=lambda seed=0, device=None: M_lm.init_lm(seed, cfg, device),
+        specs=lambda: M_lm.lm_specs(cfg),
         apply_train=apply_train,
         prefill=prefill,
         decode_step=decode_step,
@@ -175,6 +237,7 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
         cfg=cfg,
         init=lambda seed=0, device=None: M_hybrid.init_hybrid(seed, cfg,
                                                               device),
+        specs=lambda: M_hybrid.hybrid_specs(cfg),
         apply_train=apply_train,
         prefill=prefill,
         decode_step=decode_step,
@@ -219,6 +282,7 @@ def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
         cfg=cfg,
         init=lambda seed=0, device=None: M_encdec.init_encdec(seed, cfg,
                                                               device),
+        specs=lambda: M_encdec.encdec_specs(cfg),
         apply_train=apply_train,
         prefill=prefill,
         decode_step=decode_step,

@@ -6,7 +6,11 @@ eagerly, so here ``params["layers"]`` is a list of per-layer dicts and the
 scan is a Python loop.  KV caches keep the reference's stacked layout,
 ``(layers, batch, cache_len, kv_heads, head_dim)``, and decode writes each
 layer's slice of it in place.  The reference's ``logical_constraint``
-sharding hints do nothing on one device and are dropped.
+sharding hints stand where the reference's do: under a mesh they
+redistribute the residual stream and the logits (DTensors) to the rules'
+placements, and without one they do nothing.  The embedding lookup runs
+on local shards under a mesh: the table all-gathered, each rank looking
+up its own rows of the batch.
 
 Entry points: ``lm_forward`` (training), ``lm_prefill`` / ``lm_decode_step``
 (one shared length), their ``_slotted`` forms (per-slot lengths, the
@@ -26,12 +30,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    local_call,
+    logical_constraint,
+    logical_placements,
+)
 from repro_torch.models.attention import (
     attention_block,
     attention_decode,
     attention_decode_paged,
     attention_decode_slotted,
     attention_prefill,
+    attention_specs,
     init_attention,
     paged_write_index,
 )
@@ -40,10 +51,11 @@ from repro_torch.models.common import (
     cast_tree,
     embed_init,
     init_norm,
+    norm_specs,
     remat_call,
 )
-from repro_torch.models.mlp import init_mlp, mlp_block
-from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.mlp import init_mlp, mlp_block, mlp_specs
+from repro_torch.models.moe import init_moe, moe_block, moe_specs
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -112,6 +124,29 @@ def init_lm(seed: int, cfg: ModelConfig, device: DeviceLike = None
         params["unembed"] = embed_init(
             gen, (cfg.d_model, cfg.vocab_size)).to(dtype)
     return params
+
+
+def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axis names of :func:`init_lm`'s params: ``repro``'s leaf for
+    leaf, without its stacked ``layers`` prefix (``layers`` is a list
+    here)."""
+    lp: Dict[str, Any] = {
+        "attn_norm": norm_specs(cfg.norm),
+        "attn": attention_specs(cfg),
+        "mlp_norm": norm_specs(cfg.norm),
+    }
+    if cfg.family == "moe":
+        lp["moe"] = moe_specs(cfg)
+    else:
+        lp["mlp"] = mlp_specs(cfg)
+    specs: Dict[str, Any] = {
+        "embed": ("vocab", "embed_unsharded"),
+        "layers": [lp] * cfg.n_layers,
+        "final_norm": norm_specs(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("embed_unsharded", "vocab")
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +234,26 @@ class _Lookup(torch.autograd.Function):
         return embedding_grad(ids, grad, ctx.rows, ctx.dtype), None
 
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return _Lookup.apply(table, ids.reshape(-1)).reshape(*ids.shape, -1)
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    x = _Lookup.apply(params["embed"], tokens.reshape(-1))
-    return x.reshape(*tokens.shape, -1).to(torch_dtype(cfg.dtype))
+    table = params["embed"]
+    if is_dtensor(table):
+        # the table replicated (an all-gather of its vocab shards), the ids
+        # and rows split over the batch axes
+        from torch.distributed.tensor import Replicate
+
+        mesh = table.device_mesh
+        ids_axes = ("batch",) + (None,) * (tokens.dim() - 1)
+        ids_pl = logical_placements(tokens.shape, ids_axes, mesh)
+        x = local_call(_lookup, (table, tokens),
+                       ([Replicate()] * mesh.ndim, ids_pl), (ids_pl,))
+    else:
+        x = _lookup(table, tokens)
+    return x.to(torch_dtype(cfg.dtype))
 
 
 def _inputs(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
@@ -216,8 +267,10 @@ def _inputs(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed"].T.to(x.dtype)
-    return x @ params["unembed"].to(x.dtype)
+        logits = x @ params["embed"].T.to(x.dtype)
+    else:
+        logits = x @ params["unembed"].to(x.dtype)
+    return logical_constraint(logits, "batch", "seq", "vocab")
 
 
 def _layer_fwd(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
@@ -225,7 +278,9 @@ def _layer_fwd(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = x + attention_block(lp["attn"], _attn_in(lp, x, cfg), cfg,
                             positions=positions, causal=True)
-    return _ffn_residual(lp, h, cfg)
+    h = logical_constraint(h, "batch", "seq", None)
+    out, aux = _ffn_residual(lp, h, cfg)
+    return logical_constraint(out, "batch", "seq", None), aux
 
 
 def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -240,7 +295,8 @@ def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
     gradient is taken each layer runs under ``cfg.remat``
     (:func:`remat_call`), as the reference's scan body."""
     check_family(cfg)
-    x = _inputs(params, cfg, tokens, embeds)
+    x = logical_constraint(_inputs(params, cfg, tokens, embeds),
+                           "batch", "seq", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         x, aux_l = remat_call(cfg.remat, _layer_fwd, lp, x, cfg, positions)
@@ -286,10 +342,12 @@ def _prefill_layers(params, cfg: ModelConfig, x: torch.Tensor,
                     cache_len: int, positions: Optional[torch.Tensor]):
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
+    x = logical_constraint(x, "batch", "seq", None)
     for lp in params["layers"]:
         a, (kc, vc) = attention_prefill(lp["attn"], _attn_in(lp, x, cfg),
                                         cfg, cache_len, positions=positions)
-        x = _mlp_residual(lp, x + a, cfg)
+        x = logical_constraint(_mlp_residual(lp, x + a, cfg),
+                               "batch", "seq", None)
         ks.append(kc)
         vs.append(vc)
     return x, torch.stack(ks), torch.stack(vs)

@@ -113,8 +113,8 @@ def adamw(lr: Union[Callable, float], *, b1: float = 0.9, b2: float = 0.95,
     lr_fn = _lr_fn(lr)
 
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        def zeros(p):   # a DTensor param's state takes its placements
+            return torch.zeros_like(p, dtype=state_dtype)
         return AdamWState(step=0, m=tree_map(zeros, params),
                           v=tree_map(zeros, params))
 

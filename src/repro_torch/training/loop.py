@@ -10,7 +10,8 @@ Counterpart of ``repro/training/loop.py``, with the same restart contract:
 
 Steps run eagerly (no ``torch.compile``) on ``device``, the card unless
 told otherwise; the params are drawn from ``seed`` where the reference
-takes a PRNG key.  ``fail_injector(step)`` exists for tests: raising from
+takes a PRNG key.  Given a ``mesh`` (inside ``axis_rules``), the params,
+the optimizer state and every batch are DTensors placed by the rules.  ``fail_injector(step)`` exists for tests: raising from
 it simulates a node failure at an exact step.
 """
 from __future__ import annotations
@@ -22,7 +23,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import torch
 
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (
+    current_rules,
+    default_rules,
+    distribute_params,
+    is_dtensor,
+)
 from repro_torch.models.registry import ModelBundle
 from repro_torch.training.step import TrainState, make_train_step
 
@@ -37,17 +45,32 @@ class LoopConfig:
     log_every: int = 10
 
 
+def _rules(mesh):
+    return current_rules() or default_rules("pod" in mesh.mesh_dim_names)
+
+
 def init_state(bundle: ModelBundle, opt, seed: int = 0,
-               device: DeviceLike = None) -> TrainState:
+               device: DeviceLike = None, mesh=None) -> TrainState:
     params = bundle.init(seed, resolve_device(device))
+    if mesh is not None:
+        params = distribute_params(params, bundle.specs(), _rules(mesh),
+                                   mesh)
     return TrainState(0, params, opt.init(params))
 
 
-def batch_to_device(batch: Dict[str, Any], device: torch.device
+def batch_to_device(batch: Dict[str, Any], device: torch.device,
+                    bundle: Optional[ModelBundle] = None, mesh=None
                     ) -> Dict[str, torch.Tensor]:
-    """A host batch (int32 numpy tokens) as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """A host batch (int32 numpy tokens) as int64 tensors on ``device``;
+    with a ``mesh``, DTensors placed by ``bundle``'s input axes."""
+    out = {k: torch.as_tensor(v).to(device=device, dtype=torch.int64)
+           for k, v in batch.items()}
+    if mesh is None:
+        return out
+    b, s = out["labels"].shape
+    _, axes = bundle.input_specs(ShapeCell("batch", "train", s, b))
+    return distribute_params(out, {k: axes[k] for k in out}, _rules(mesh),
+                             mesh)
 
 
 def train_loop(
@@ -61,6 +84,7 @@ def train_loop(
     opt=None,
     fail_injector: Optional[Callable[[int], None]] = None,
     log: Callable[[str], None] = print,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Run to ``total_steps`` with restart-on-failure.  Returns the summary
     of the reference (``state``, ``losses`` logged, ``restarts``), and
@@ -80,7 +104,7 @@ def train_loop(
         try:
             # ---- (re)start: restore latest or init fresh -----------------
             if state is None:
-                state = init_state(bundle, opt, seed, dev)
+                state = init_state(bundle, opt, seed, dev, mesh)
                 if ckpt.latest_step() is not None:
                     start, state = ckpt.restore(state)
                     log(f"[loop] restored step {start}")
@@ -93,11 +117,14 @@ def train_loop(
             for step in range(start, loop_cfg.total_steps):
                 if fail_injector is not None:
                     fail_injector(step)
-                batch = batch_to_device(next(data), dev)
+                batch = batch_to_device(next(data), dev, bundle, mesh)
                 t0 = time.monotonic()
                 state, metrics = train_step(state, batch)
                 if step % loop_cfg.log_every == 0:
-                    loss = float(metrics["loss"])
+                    loss = metrics["loss"]
+                    if is_dtensor(loss):    # every rank: a collective
+                        loss = loss.full_tensor()
+                    loss = float(loss)
                     dt = time.monotonic() - t0
                     losses.append(loss)
                     loss_at[step], seconds_at[step] = loss, dt

@@ -8,6 +8,11 @@ Counterpart of ``repro/training/step.py``:
 * gradient clipping by global norm, optional gradient compression;
 * AdamW or Adafactor per config.
 
+Under a mesh the params are DTensors (``distribute_params``), the batch
+too, and each grad is brought to its param's placements
+(:func:`_placed_like`) before the optimizer, whose state takes the
+params' placements.
+
 Gradients come from ``torch.autograd.grad`` over the param leaves, which
 require grad only inside a step (:func:`requiring_grad`), so the params a
 step returns are plain tensors as the reference's arrays are.  The step
@@ -28,6 +33,11 @@ from repro_torch.device import torch_dtype
 from repro_torch.distributed.compression import (
     CompressionConfig,
     compress_grads,
+)
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    local_call,
+    mesh_rank,
 )
 from repro_torch.models.registry import ModelBundle
 from repro_torch.optim import adafactor, adamw, clip_by_global_norm
@@ -52,10 +62,51 @@ def make_optimizer(cfg: ModelConfig, lr=3e-4):
 
 def _xent_terms(logits: torch.Tensor, labels: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp over the vocab, the label's logit), each (B, S) f32."""
+    if is_dtensor(logits):
+        return _xent_terms_sharded(logits, labels)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return lse, gold
+
+
+def _xent_terms_sharded(logits, labels):
+    """:func:`_xent_terms` on local shards of DTensor logits (B, S, V).
+    Split over the vocab, each rank reduces its slice: the max (an
+    all-reduce of maxima, held out of the gradient), the sum of
+    exponentials and the label's logit where the label is in the slice
+    (all-reduced sums); the logits themselves are never gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    pl = [Replicate() if isinstance(p, Partial) else p
+          for p in logits.placements]
+    row_pl = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+              for p in pl]
+    v_rank, v_ways = mesh_rank(mesh, pl, 2)
+    if v_ways == 1:
+        return local_call(_xent_terms, (logits, labels), (pl, row_pl),
+                          (row_pl, row_pl))
+
+    def summands(op):
+        return [Partial(op) if isinstance(p, Shard) and p.dim == 2 else p
+                for p in pl]
+    lo = v_rank * -(-logits.shape[-1] // v_ways)
+
+    def local_terms(lg, lab, m):
+        lg = lg.float()
+        sum_exp = torch.exp(lg - m[..., None]).sum(dim=-1)
+        at = lab.long() - lo
+        inside = (at >= 0) & (at < lg.shape[-1])
+        gold = lg.gather(-1, at.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return sum_exp, torch.where(inside, gold, torch.zeros_like(gold))
+    m = local_call(lambda lg: lg.detach().float().amax(dim=-1), (logits,),
+                   (pl,), (summands("max"),)).redistribute(mesh, row_pl)
+    sum_exp, gold = local_call(local_terms, (logits, labels, m),
+                               (pl, row_pl, row_pl),
+                               (summands("sum"), summands("sum")))
+    return m + torch.log(sum_exp), gold
 
 
 def loss_fn(params, batch: Dict[str, Any], bundle: ModelBundle
@@ -129,9 +180,19 @@ def value_and_grad(params, batch: Dict[str, Any], bundle: ModelBundle
     with requiring_grad(params) as leaves, torch.enable_grad():
         total, metrics = loss_fn(params, batch, bundle)
         grads = torch.autograd.grad(total, leaves, materialize_grads=True)
-    by_leaf = {id(p): g for p, g in zip(leaves, grads)}
+    by_leaf = {id(p): _placed_like(g, p) for p, g in zip(leaves, grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
     return metrics, tree_map(lambda p: by_leaf[id(p)], params)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor grad on its param's placements: a sum over the ranks
+    that split the batch (``Partial``) becomes the param's shard, the
+    data-parallel all-reduce (a reduce-scatter where the param is
+    sharded).  A plain grad is returned as it is."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(
@@ -150,8 +211,8 @@ def make_train_step(
     def grads_of(params, batch):
         if m == 1:
             return value_and_grad(params, batch, bundle)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                               device=p.device), params)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt),
+                         params)
         metrics = None
         for mb in _split_microbatches(batch, m):
             met, g = value_and_grad(params, mb, bundle)
