@@ -223,11 +223,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    sharding caches) is printed; (b) the
    dry run (repro_torch.launch.dryrun.run_cell) on the fake (16, 16) mesh
    of 256 ranks: qwen3-4b x train_4k and x decode_32k, dbrx-132b x
-   prefill_32k, zamba2-7b x long_500k at their published widths.  Gates:
-   every cell ok, rank 0's param bytes equal what the specs imply exactly;
+   prefill_32k (on the EP path, its config's, and again on the sort
+   path), zamba2-7b x long_500k at their published widths.  Gates:
+   every cell ok, rank 0's param bytes equal what the specs imply exactly,
+   dbrx-132b's EP cell moves all-to-all bytes and its sort cell none;
    each cell's peak bytes, flops, bytes, collective bytes by kind, the
-   dominant term and useful_fraction are printed;
-18. the last lines are the card (nvidia-smi), a JSON line of every kernel
+   dominant term and useful_fraction are printed, and the EP cell's peak
+   beside the sort cell's;
+18. expert parallelism (repro's moe_block_ep), in two processes of its
+   own: (a) an NCCL group of one rank and a (1, 1) mesh; kimi-k2 at its
+   published widths (d_model 7168, 384 experts of 2048, top-8, a shared
+   expert; bf16, random weights from a seed) cut to 1 of its 61 layers,
+   its params as DTensors, so every MoE call takes the EP path: a prefill
+   of 32 x 128 and 8 greedy decode steps.  Gates: 9 MoE calls on EP, gmm
+   launches = 3 x 9, each on the path its capacity picks (c_loc 136:
+   wgmma; 8: decode), each held to gmm_ref on its own inputs (normwise
+   and elementwise, a slice of experts at a time); finite logits; on 128
+   tokens of the prefill's MoE input, at the least capacity factor from 8
+   up where neither path drops a pair (none may), the EP block equals the
+   sort block normwise within 1e-2.  Printed: the init's peak memory, the
+   prefill's and decode steps' wall ms, a warm prefill's and step's
+   device busy ms and idle share, the pairs each path drops at the
+   config's capacity (EP by stage), and the kernel's times at E 384 (one
+   decode step's and the prefill's launches) beside gmm_ref, torch.bmm
+   and the bound; (b) four gloo ranks, each a process on the one card
+   (NCCL takes one rank a device), a (2, 2) mesh, dbrx-132b reduced
+   (f32) at capacity 8: each rank's shard of the EP block's output and
+   the load-balance loss equal the one-process sort path's within 1e-4,
+   each rank launched gmm 3 times and dropped no pair;
+19. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -4054,9 +4078,13 @@ MESH_TRAIN = dict(arch="qwen2-0.5b", layers=4, steps=3, batch=8, seq=512)
 MESH_MOE = dict(arch="dbrx-132b", batch=4, seq=64)      # phase 14d's config
 MESH_SERVE = dict(arch="qwen3-4b", layers=4, batch=4, prompt=128,
                   cache_len=160, steps=8)
-# 17b: the dry run's cells on the fake (16, 16) mesh of 256 ranks
-DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "decode_32k"),
-                ("dbrx-132b", "prefill_32k"), ("zamba2-7b", "long_500k"))
+# 17b: the dry run's cells on the fake (16, 16) mesh of 256 ranks, each
+# (arch, shape, config changes); dbrx-132b x prefill_32k takes the EP path
+# (its config's ep_a2a), and again the sort path for comparison
+DRYRUN_CELLS = (("qwen3-4b", "train_4k", {}), ("qwen3-4b", "decode_32k", {}),
+                ("dbrx-132b", "prefill_32k", {}),
+                ("dbrx-132b", "prefill_32k", {"moe_impl": "sort"}),
+                ("zamba2-7b", "long_500k", {}))
 CHILD_TIMEOUT_S = 300
 
 
@@ -4178,10 +4206,12 @@ def mesh_child(out_path: str, device: str = "cuda") -> int:
     out["train"]["losses"] = [float(x) for x in r["plain"]["losses"]]
     del r, params0
 
-    # ---- dbrx-132b reduced (phase 14d's config): one train step ---------
+    # ---- dbrx-132b reduced (phase 14d's config): one train step, on the
+    # sort path with and without the mesh (on a mesh the config's ep_a2a
+    # takes the EP path, another function; phase 18 holds that one)
     t = MESH_MOE
     cfg = dataclasses.replace(reduced_config(t["arch"]), remat="full",
-                              microbatches=2)
+                              microbatches=2, moe_impl="sort")
     bundle = build_model(cfg)
     params0 = bundle.init(SEED, dev)
     data = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
@@ -4253,12 +4283,13 @@ def dryrun_child(out_path: str) -> int:
     from repro_torch.launch import dryrun
 
     cells = []
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, change in DRYRUN_CELLS:
         details: dict = {}
         t0 = time.perf_counter()
-        rep = dryrun.run_cell(arch, shape, False, details=details)
+        rep = dryrun.run_cell(arch, shape, False, details=details,
+                              cfg_overrides=change or None)
         cells.append(dict(report=rep.to_dict(), details=details,
-                          wall_s=time.perf_counter() - t0))
+                          changes=change, wall_s=time.perf_counter() - t0))
     Path(out_path).write_text(json.dumps(cells))
     return 0
 
@@ -4329,19 +4360,35 @@ def phase_mesh() -> dict:
     return r
 
 
+def cell_name(c: dict) -> str:
+    """'arch x shape', with the cell's config changes."""
+    rep, change = c["report"], c.get("changes")
+    return f"{rep['arch']} x {rep['shape']}" + (f" {change}" if change
+                                                 else "")
+
+
 def phase_dryrun() -> list:
     """Phase 17b: every cell ok, and rank 0's param bytes equal what the
-    specs imply exactly."""
+    specs imply exactly; a MoE cell moves all-to-all bytes on the EP path
+    and none on the sort path."""
     cells = _child("--phase-17b", "17b")
-    bad = [(c["report"]["arch"], c["report"]["shape"]) for c in cells
+    bad = [cell_name(c) for c in cells
            if not c["report"]["ok"] or c["details"]["param_bytes"]
            != c["details"]["param_bytes_implied"]]
     if bad:
         raise RuntimeError(f"phase 17b: cells not ok or param bytes not "
                            f"exact: {bad}")
+    moe = {(c.get("changes") or {}).get("moe_impl", "ep_a2a"):
+           c["report"] for c in cells if c["report"]["arch"] == "dbrx-132b"}
+    a2a = {k: rep["coll_breakdown"].get("all-to-all", 0.0)
+           for k, rep in moe.items()}
+    if moe and not (a2a["ep_a2a"] > 0 and a2a["sort"] == 0):
+        raise RuntimeError(f"phase 17b: all-to-all bytes of dbrx-132b's "
+                           f"EP and sort cells {a2a}: want some on EP and "
+                           f"none on sort")
     for c in cells:
         rep, det = c["report"], c["details"]
-        log(f"[dryrun] {rep['arch']} x {rep['shape']} x {rep['mesh']}: "
+        log(f"[dryrun] {cell_name(c)} x {rep['mesh']}: "
             f"peak {rep['peak_bytes'] / 2**30:.3f} GiB/dev, params "
             f"{det['param_bytes']} B/dev (= specs), flops "
             f"{rep['flops_dev']:.6g}, bytes {rep['bytes_dev']:.6g}, "
@@ -4351,16 +4398,528 @@ def phase_dryrun() -> list:
             f" s at H100 SXM constants), useful_fraction "
             f"{rep['useful_fraction']:.4f}, kernels {det['kernels']}, "
             f"{c['wall_s']:.1f}s")
+    if moe:
+        ep, sort = moe["ep_a2a"], moe["sort"]
+        log(f"[dryrun] dbrx-132b x {ep['shape']} on the EP path: peak "
+            f"{ep['peak_bytes'] / 2**30:.3f} GiB/dev against "
+            f"{sort['peak_bytes'] / 2**30:.3f} on the sort path; all-to-all "
+            f"{a2a['ep_a2a']:.6g} B/dev; collective bytes "
+            f"{ep['coll_dev']:.6g} against {sort['coll_dev']:.6g}")
     return cells
 
 
-def gmm_entry(moe, bwd=None, moe_train=None) -> dict:
+# ---------------------------------------------------------------------------
+# Phase 18: expert parallelism (moe_block_ep's two all-to-alls)
+# ---------------------------------------------------------------------------
+
+# 18a: kimi-k2 at its published widths cut to 1 of 61 layers, on a (1, 1)
+# mesh of one NCCL rank (bf16, random weights from SEED): a prefill of 32 x
+# 128 and 8 greedy decode steps, both on the EP path; the gate against the
+# sort path on the prefill's MoE input, its first gate_rows rows, at the
+# least capacity factor from gate_cf up at which the sort path's capacity
+# holds the busiest expert's pairs (EP's c_loc, ~cf^2, then holds them
+# too), at most gate_max_cf (random weights route unevenly: 96 of 512
+# tokens' pairs went to one expert)
+EP_RUN = dict(arch="kimi-k2-1t-a32b", layers=1, batch=32, prompt=128,
+              cache_len=136, steps=8, gate_rows=1, gate_cf=8.0,
+              gate_max_cf=24.0)
+# normwise, bf16: the two blocks sum each token's rows in one order, but
+# the shared expert's products differ in shape (3-D here, 2-D there)
+EP_SORT_TOL = 1e-2
+# 18b: four gloo ranks on the one card, a (2, 2) mesh, dbrx-132b reduced
+# (f32) at a capacity where no pair drops; each rank's full output against
+# the one-process sort path (the f32 gmm tolerance)
+EP_RANKS = dict(arch="dbrx-132b", shape=(2, 2), batch=4, seq=64,
+                capacity_factor=8.0)
+EP_RANKS_TOL = 1e-4
+# a gmm launch at E 384 is held to gmm_ref this many experts at a time
+# (gmm_ref's f32 copy of a whole expert matrix is 22.5 GB)
+GMM_CHECK_EXPERTS = 64
+
+
+def gmm_launch_errors(torch, x, w, got) -> tuple:
+    """One recorded launch against gmm_ref on its own inputs, a slice of
+    experts at a time: (max abs error, normwise error, share of the
+    elementwise tolerance)."""
+    from repro_torch.kernels.moe_gmm import gmm_ref
+    tol = GMM_TOL[str(x.dtype).split(".")[-1]]
+    err, ratio, num, den = 0.0, 0.0, 0.0, 0.0
+    for e0 in range(0, x.shape[0], GMM_CHECK_EXPERTS):
+        sl = slice(e0, e0 + GMM_CHECK_EXPERTS)
+        want = gmm_ref(x[sl], w[sl]).float()
+        diff = (got[sl].float() - want).abs()
+        if diff.numel():
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float((diff / (tol + tol * want.abs()))
+                                     .max()))
+        num += float((diff * diff).sum())
+        den += float((want * want).sum())
+        if not torch.isfinite(got[sl]).all():
+            ratio = math.inf
+    return err, math.sqrt(num / den) if den else 0.0, ratio
+
+
+def ep_dispatch_recorder(torch, moe_mod, stages: list):
+    """``_dispatch_local`` recording, on the device, each call's (buckets,
+    capacity, rows, valid rows, kept rows); the script's, not the
+    program's."""
+    dispatch = moe_mod._dispatch_local
+
+    def call(ids, n_buckets, capacity, valid=None):
+        res = dispatch(ids, n_buckets, capacity, valid)
+        n = torch.tensor(ids.numel(), device=ids.device)
+        stages.append((n_buckets, capacity, n,
+                       n if valid is None else valid.sum(), res[3].sum()))
+        return res
+    return call
+
+
+def ep_drops(stages) -> dict:
+    """Pairs each EP stage dropped (real rows not kept), from recorded
+    dispatches, which an EP call makes in pairs: stage 1 buckets by rank,
+    stage 2 by local expert."""
+    out = {"send": 0, "local": 0, "c_send": [], "c_loc": []}
+    for i, (buckets, cap, _, valid, kept) in enumerate(stages):
+        stage = "send" if i % 2 == 0 else "local"
+        out[stage] += int(valid) - int(kept)
+        out["c_send" if stage == "send" else "c_loc"].append(cap)
+    out["c_send"], out["c_loc"] = sorted(set(out["c_send"])), sorted(
+        set(out["c_loc"]))
+    return out
+
+
+def sort_drops(torch, moe_mod, p, x, cfg) -> int:
+    """Pairs the sort path drops on ``x`` (its routing against the
+    capacity of its token count)."""
+    t = x.shape[0] * x.shape[1]
+    _, _, experts = moe_mod.route(p, x.reshape(t, -1), cfg)
+    counts = (experts.reshape(-1, 1) == torch.arange(
+        cfg.n_experts, device=x.device)).sum(0)
+    return int((counts - moe_mod.expert_capacity(t, cfg)).clamp(min=0).sum())
+
+
+def ep_child(out_path: str, device: str = "cuda") -> int:
+    """Phase 18a, in its own process: a process group of one rank (NCCL on
+    the card, gloo on the CPU), a (1, 1) ("data", "model") mesh and
+    EP_RUN's model with its params as DTensors under ``axis_rules``, so
+    every MoE call takes the EP path; results to ``out_path`` as JSON.
+    The allocator grows its segments in place: gmm_ref's 22.5 GB f32 copy
+    of an expert matrix must fit beside ~39 GB of params whose init left
+    the cache fragmented."""
+    import dataclasses
+    import os
+    import socket
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as transformer_mod
+    from repro_torch.models.registry import build_model
+
+    t = EP_RUN
+    cfg = dataclasses.replace(get_config(t["arch"]), n_layers=t["layers"],
+                              **t.get("cfg", {}))
+    mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+    rules = rules_for(t["arch"], multi_pod=False, global_batch=t["batch"])
+    bundle = build_model(cfg)
+    out: dict = {"cfg": dict(d_model=cfg.d_model, n_experts=cfg.n_experts,
+                             moe_d_ff=cfg.moe_d_ff, layers=cfg.n_layers,
+                             k=cfg.experts_per_token,
+                             cf=cfg.capacity_factor)}
+    t0 = time.perf_counter()
+    params = bundle.init(SEED, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0,
+               init_peak_gb=peak_gb(torch, dev),
+               n_params=sum(x.numel() for x in _tensors(params)))
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (t["batch"], t["prompt"]),
+                           generator=gen).to(dev)
+    launches, stages, inputs, ep_calls = [], [], [], []
+    block, ep = transformer_mod.moe_block, moe_mod._moe_block_ep
+
+    def rec_gmm(x, w):
+        y = gmm(x, w)
+        launches.append((x, w, y))
+        return y
+
+    def rec_block(p, x, c):
+        inputs.append(x.full_tensor() if sh.is_dtensor(x) else x)
+        return block(p, x, c)
+
+    def counted_ep(*a):
+        ep_calls.append(1)
+        return ep(*a)
+    swaps = [(moe_mod, "gmm", rec_gmm), (moe_mod, "_moe_block_ep", counted_ep),
+             (moe_mod, "_dispatch_local",
+              ep_dispatch_recorder(torch, moe_mod, stages)),
+             (transformer_mod, "moe_block", rec_block)]
+
+    with sh.axis_rules(rules, mesh), torch.no_grad():
+        dp = sh.distribute_params(params, bundle.specs(), rules, mesh)
+        toks = sh.distribute_params({"t": prompt}, {"t": ("batch", "seq")},
+                                    rules, mesh)["t"]
+
+        def prefill():
+            return bundle.prefill(dp, {"tokens": toks,
+                                       "cache_len": t["cache_len"]})
+
+        def serve():
+            (logits, cache), pre_ms = _timed(torch, prefill, dev)
+            step_ms = []
+            for _ in range(t["steps"]):
+                nxt = logits.argmax(-1)[:, None]
+                (logits, cache), ms = _timed(torch, lambda: bundle.decode_step(
+                    dp, cache, {"tokens": nxt}), dev)
+                step_ms.append(ms)
+            return logits, cache, pre_ms, step_ms
+        reset_counts()
+        logits, cache, pre_ms, step_ms = swapped(swaps, serve)
+        out.update(counts=read_counts(), paths=read_paths("moe_gmm"),
+                   ep_calls=len(ep_calls), launches=len(launches),
+                   prefill_ms=pre_ms, step_ms=step_ms,
+                   finite=bool(torch.isfinite(sh.full_tree(logits)).all()))
+        # the same calls again, warm, under the profiler
+        if dev.type == "cuda":
+            _, busy, kernels, wall = device_busy(torch, prefill)
+            out["prefill_profile"] = dict(busy_ms=busy, kernels=kernels,
+                                          wall_ms=wall)
+            nxt = logits.argmax(-1)[:, None]
+            _, busy, kernels, wall = device_busy(
+                torch, lambda: bundle.decode_step(dp, cache,
+                                                  {"tokens": nxt}))
+            out["step_profile"] = dict(busy_ms=busy, kernels=kernels,
+                                       wall_ms=wall)
+    per_call = 2 * t["layers"]      # two dispatches a MoE layer a call
+    out["drops"] = dict(
+        prefill=ep_drops(stages[:per_call]),
+        decode=ep_drops(stages[per_call:]),
+        sort_prefill=sort_drops(torch, moe_mod, params["layers"][0]["moe"],
+                                inputs[0], cfg),
+        sort_decode=sum(sort_drops(torch, moe_mod,
+                                   params["layers"][i % t["layers"]]["moe"],
+                                   x, cfg)
+                        for i, x in enumerate(inputs[t["layers"]:])),
+        sort_cap_prefill=moe_mod.expert_capacity(
+            t["batch"] * t["prompt"], cfg),
+        sort_cap_decode=moe_mod.expert_capacity(t["batch"], cfg))
+
+    # ---- every launch against gmm_ref on its own inputs ------------------
+    errs = [gmm_launch_errors(torch, x, w, y) for x, w, y in launches]
+    out["gmm"] = dict(err=max(e[0] for e in errs), rel=max(e[1] for e in errs),
+                      worst=max(e[2] for e in errs),
+                      shapes=sorted({(tuple(x.shape), tuple(w.shape))
+                                     for x, w, _ in launches}))
+    # ---- the kernel's times at E 384: one decode step's and the prefill's
+    # three launches, beside gmm_ref (eager: its f32 copy of a weight is
+    # 22.5 GB, too large to capture three of in a graph), bmm, the bound
+    if dev.type == "cuda":
+        n = 3 * t["layers"]
+        for tag, sets in (("decode", launches[-n:]), ("prefill",
+                                                      launches[:n])):
+            torch.cuda.empty_cache()    # room for gmm_ref's f32 weight
+            sets = [(x, w) for x, w, _ in sets]
+            bounds = [gmm_bound_ms(x, w) for x, w in sets]
+            ms = time_ms(gmm, sets)
+            out[f"{tag}_gmm"] = dict(
+                ms=ms, plain_ms=sum(eager_ms(gmm_ref, [s], iters=3)
+                                    for s in sets) / len(sets),
+                library_ms=time_ms(bmm_call, sets),
+                bound_ms=sum(b for b, _ in bounds) / len(bounds),
+                bound_by=max(bounds)[1],
+                tflops=sum(gmm_flops(x, w) for x, w in sets) / len(sets)
+                / ms / 1e9,
+                shape=[list(sets[0][0].shape), list(sets[0][1].shape)])
+    del launches, errs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- EP against the sort path on the same input, where neither drops
+    x = inputs[0][:t["gate_rows"]].contiguous()
+    n_tok = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        _, _, chosen = moe_mod.route(params["layers"][0]["moe"],
+                                     x.reshape(n_tok, -1), cfg)
+    busiest = int((chosen.reshape(-1, 1) == torch.arange(
+        cfg.n_experts, device=x.device)).sum(0).max())
+    cf = max(t["gate_cf"], float(math.ceil(
+        busiest * cfg.n_experts / (n_tok * cfg.experts_per_token))))
+    if cf > t["gate_max_cf"]:
+        raise RuntimeError(f"phase 18a: the busiest expert takes {busiest} "
+                           f"of {n_tok} tokens' pairs; no-drop capacity "
+                           f"{cf} is past {t['gate_max_cf']}")
+    gate_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    gate_stages: list = []
+    with sh.axis_rules(rules, mesh), torch.no_grad():
+        y_ep, _ = swapped([(moe_mod, "_dispatch_local", ep_dispatch_recorder(
+            torch, moe_mod, gate_stages))], moe_mod.moe_block,
+            dp["layers"][0]["moe"], x, gate_cfg)
+    with torch.no_grad():
+        y_sort, _ = moe_mod.moe_block(params["layers"][0]["moe"], x,
+                                      dataclasses.replace(gate_cfg,
+                                                          moe_impl="sort"))
+    d = ep_drops(gate_stages)
+    out["gate"] = dict(
+        rel=rel_err(y_ep, y_sort),
+        err=float((y_ep.float() - y_sort.float()).abs().max()),
+        tokens=n_tok, cf=cf, busiest=busiest,
+        ep_drops=d["send"] + d["local"], c_send=d["c_send"],
+        c_loc=d["c_loc"], sort_cap=moe_mod.expert_capacity(
+            x.shape[0] * x.shape[1], gate_cfg),
+        sort_drops=sort_drops(torch, moe_mod, params["layers"][0]["moe"], x,
+                              gate_cfg))
+    out["peak_gb"] = peak_gb(torch, dev)
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def _ep_rank(rank: int, store: str, out_path: str, device: str) -> None:
+    """One of phase 18b's gloo ranks (see ep_ranks_child): the EP block on
+    its shard of x, against its shard of the one-process sort path's
+    output; its result to ``out_path.<rank>``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(dev)
+    world = math.prod(EP_RANKS["shape"])
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models import moe as moe_mod
+
+    t = EP_RANKS
+    cfg = dataclasses.replace(reduced_config(t["arch"]),
+                              capacity_factor=t["capacity_factor"],
+                              **t.get("cfg", {}))
+    mesh = make_mesh(t["shape"], ("data", "model"), dev.type)
+    # the weights whole over "data" (no FSDP split) and x placed as the EP
+    # block takes it, so that the block's own collectives are the run's
+    # only ones: gloo's all-gather of CUDA tensors crashes (torch 2.11)
+    rules = rules_for(t["arch"], multi_pod=False, global_batch=t["batch"],
+                      overrides={"embed": None})
+    p = moe_mod.init_moe(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    x = torch.randn(t["batch"], t["seq"], cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 1))
+    x_pl = [Shard(0), Shard(1)]
+    stages, ep_calls = [], []
+    ep = moe_mod._moe_block_ep
+
+    def counted_ep(*a):
+        ep_calls.append(1)
+        return ep(*a)
+    reset_counts()
+    with sh.axis_rules(rules, mesh), torch.no_grad():
+        dp = sh.distribute_params(p, moe_mod.moe_specs(cfg), rules, mesh)
+        y, aux = swapped([(moe_mod, "_moe_block_ep", counted_ep),
+                          (moe_mod, "_dispatch_local", ep_dispatch_recorder(
+                              torch, moe_mod, stages))],
+                         moe_mod.moe_block, dp, sh.from_full(x, mesh, x_pl),
+                         cfg)
+        launches = read_counts()["moe_gmm"]
+        placed = list(y.placements) == x_pl
+        y, aux = y.to_local(), aux.to_local()
+    with torch.no_grad():
+        ys, auxs = moe_mod.moe_block(p, x, dataclasses.replace(
+            cfg, moe_impl="sort"))
+    ys = sh.local_chunk(ys, mesh, x_pl)
+    drops = ep_drops(stages)
+    Path(f"{out_path}.{rank}").write_text(json.dumps(dict(
+        rank=rank, ep_calls=len(ep_calls), launches=launches, placed=placed,
+        err=float((y - ys).abs().max()), rel=rel_err(y, ys),
+        aux_err=abs(float(aux) - float(auxs)),
+        drops=drops["send"] + drops["local"], c_send=drops["c_send"],
+        c_loc=drops["c_loc"])))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_ranks_child(out_path: str, device: str = "cuda",
+                   rank_fn=None) -> int:
+    """Phase 18b, in its own process: EP_RANKS's four gloo ranks (NCCL
+    takes one rank a device), each a process of its own on the one card,
+    meeting through a file; each runs the EP block on its shard of a
+    (2, 2) mesh and the one-process sort path on the same inputs.
+    ``rank_fn`` (default ``_ep_rank``) is what each rank's process runs;
+    the ranks' results go to ``out_path`` as one JSON list."""
+    import torch.multiprocessing as mp
+
+    world = math.prod(EP_RANKS["shape"])
+    store = str(Path(out_path).resolve()) + ".rendezvous"
+    try:
+        mp.spawn(rank_fn or _ep_rank, args=(store, out_path, device),
+                 nprocs=world)
+    finally:
+        Path(store).unlink(missing_ok=True)
+    parts = [Path(f"{out_path}.{r}") for r in range(world)]
+    Path(out_path).write_text(json.dumps(
+        [json.loads(q.read_text()) for q in parts]))
+    for q in parts:
+        q.unlink()
+    return 0
+
+
+def check_ep(r: dict) -> None:
+    """Phase 18a's gates on its child's result."""
+    t = EP_RUN
+    calls = t["layers"] * (1 + t["steps"])
+    bad = {}
+    if r["ep_calls"] != calls:
+        bad["EP calls"] = (r["ep_calls"], calls)
+    if r["counts"]["moe_gmm"] != 3 * calls or r["launches"] != 3 * calls:
+        bad["gmm launches"] = (r["counts"]["moe_gmm"], r["launches"],
+                               3 * calls)
+    if "prefill_gmm" in r:      # the card: the path of each launch
+        want = dict.fromkeys(r["paths"], 0)
+        for tag, n in (("prefill", t["layers"]), ("decode",
+                                                  t["layers"] * t["steps"])):
+            c = r["drops"][tag]["c_loc"][0]
+            want["decode" if c <= 16 else "wgmma"] += 3 * n
+        if r["paths"] != want:
+            bad["gmm paths"] = (r["paths"], want)
+    g = r["gmm"]
+    if not (g["rel"] <= GMM_NORM_TOL["bfloat16"] and g["worst"] <= 1.0):
+        bad["gmm against gmm_ref"] = g
+    if not r["finite"]:
+        bad["logits"] = "not finite"
+    gate = r["gate"]
+    if gate["ep_drops"] or gate["sort_drops"]:
+        bad["gate capacity"] = (f"pairs dropped at capacity {gate['cf']}: "
+                                f"EP {gate['ep_drops']}, sort "
+                                f"{gate['sort_drops']}")
+    if not gate["rel"] <= EP_SORT_TOL:
+        bad["EP against sort"] = (gate["rel"], EP_SORT_TOL)
+    if bad:
+        raise RuntimeError(f"phase 18a: {bad}")
+
+
+def check_ep_ranks(ranks: list) -> None:
+    """Phase 18b's gates: every rank took EP once with its three gmm
+    launches, dropped nothing, kept x's placements, and its shard of the
+    output equals the sort path's."""
+    bad = [r for r in ranks if r["ep_calls"] != 1 or r["launches"] != 3
+           or r["drops"] or not r["placed"] or not r["err"] <= EP_RANKS_TOL
+           or not r["aux_err"] <= EP_RANKS_TOL]
+    if len(ranks) != math.prod(EP_RANKS["shape"]) or bad:
+        raise RuntimeError(f"phase 18b: ranks off the EP path or off the "
+                           f"sort path's output: {bad or ranks}")
+
+
+def phase_ep() -> dict:
+    """Phase 18: kimi-k2 on the EP path on one card (18a), and four gloo
+    ranks of the EP block on it (18b)."""
+    t0 = time.perf_counter()
+    r = _child("--phase-18a", "18a")
+    t, d = EP_RUN, r["drops"]
+    steps = sorted(r["step_ms"])
+    log(f"[ep] {t['arch']} ({r['cfg']['layers']} layer, d_model "
+        f"{r['cfg']['d_model']}, {r['cfg']['n_experts']} experts of "
+        f"{r['cfg']['moe_d_ff']}, top-{r['cfg']['k']}; "
+        f"{r['n_params'] / 1e9:.3f}B params) on the (1, 1) mesh: init "
+        f"{r['init_s']:.1f}s, peak {r['init_peak_gb']:.2f} GB; prefill "
+        f"{t['batch']} x {t['prompt']} {r['prefill_ms']:.1f} ms (cold), "
+        f"{t['steps']} decode steps at batch {t['batch']}, median "
+        f"{steps[len(steps) // 2]:.1f} ms; {r['ep_calls']} MoE calls all "
+        f"on EP, gmm launches {r['counts']['moe_gmm']} by path "
+        f"{ {k: v for k, v in r['paths'].items() if v} }; peak "
+        f"{r['peak_gb']:.2f} GB")
+    for tag in ("prefill", "step"):
+        prof = r.get(f"{tag}_profile")
+        if prof:
+            log(f"[ep] warm {tag}: wall {prof['wall_ms']:.1f} ms, device "
+                f"busy {prof['busy_ms']:.3f} ms over {prof['kernels']} "
+                f"kernels (idle share "
+                f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f})")
+    log(f"[ep] pairs dropped at capacity {r['cfg']['cf']}: EP prefill "
+        f"{d['prefill']['send']} at c_send {d['prefill']['c_send']} + "
+        f"{d['prefill']['local']} at c_loc {d['prefill']['c_loc']}, EP "
+        f"decode {d['decode']['send']} at c_send {d['decode']['c_send']} + "
+        f"{d['decode']['local']} at c_loc {d['decode']['c_loc']}; the sort "
+        f"path on the same inputs: prefill {d['sort_prefill']} at cap "
+        f"{d['sort_cap_prefill']}, decode {d['sort_decode']} at cap "
+        f"{d['sort_cap_decode']}")
+    g = r["gmm"]
+    log(f"[ep] every gmm launch against gmm_ref on its own inputs "
+        f"({len(g['shapes'])} shapes): max_abs_err={g['err']:.3g}, "
+        f"normwise {g['rel']:.3g} (tol {GMM_NORM_TOL['bfloat16']}), "
+        f"{g['worst']:.3g} of the elementwise tolerance")
+    for tag in ("decode", "prefill"):
+        k = r.get(f"{tag}_gmm")
+        if k:
+            log(f"[kernel] moe_gmm at E 384, {tag} (x {k['shape'][0]}, w "
+                f"{k['shape'][1]}): ms={k['ms']:.4f} ({k['tflops']:.1f} "
+                f"TFLOP/s) plain_ms={k['plain_ms']:.4f} (eager) bmm_ms="
+                f"{k['library_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
+                f"({k['bound_by']}); "
+                f"{ratios(k['ms'], bound=k['bound_ms'], bmm=k['library_ms'])}")
+    gate = r["gate"]
+    log(f"[ep] EP against the sort path on {gate['tokens']} tokens of the "
+        f"prefill's MoE input at capacity {gate['cf']} (c_send "
+        f"{gate['c_send']}, c_loc {gate['c_loc']}, sort cap "
+        f"{gate['sort_cap']}; the busiest expert {gate['busiest']} pairs; "
+        f"pairs dropped: EP {gate['ep_drops']}, sort {gate['sort_drops']}):"
+        f" normwise {gate['rel']:.3g} (tol {EP_SORT_TOL}), max abs "
+        f"{gate['err']:.3g}")
+    check_ep(r)
+    ranks = _child("--phase-18b", "18b")
+    check_ep_ranks(ranks)
+    log(f"[ep] {len(ranks)} gloo ranks on a {EP_RANKS['shape']} mesh, "
+        f"{EP_RANKS['arch']} reduced at capacity "
+        f"{EP_RANKS['capacity_factor']}: every rank on EP with 3 gmm "
+        f"launches and no pair dropped (c_send {ranks[0]['c_send']}, c_loc "
+        f"{ranks[0]['c_loc']}), each rank's shard of the output against the "
+        f"one-process sort path "
+        f"max abs {max(x['err'] for x in ranks):.3g} (tol {EP_RANKS_TOL}), "
+        f"normwise {max(x['rel'] for x in ranks):.3g}")
+    log(f"[ep] phase 18 in {time.perf_counter() - t0:.1f}s")
+    return dict(a=r, b=ranks)
+
+
+def gmm_entry(moe, bwd=None, moe_train=None, ep=None) -> dict:
     """The ``kernels`` line's entry for the grouped matmul, from phase 12:
     launches of the dense engine's run; times per launch over one decode
     step's inputs, and (``prefill_*``) one prefill's; with phase 14's
     results, ``backward_*`` one backward at dbrx-132b's prefill shape
     (phase 14a's first case: both launches, and dX and dW apart),
-    ``backward_f32_*`` its f32 case, and ``train_launches`` phase 14d's."""
+    ``backward_f32_*`` its f32 case, and ``train_launches`` phase 14d's;
+    with phase 18's, ``ep_launches`` (kimi-k2's EP run; ``ep_ranks_
+    launches`` the four gloo ranks'), its launches' errors and ``ep_decode_
+    *`` / ``ep_prefill_*`` the kernel's times at E 384."""
     d, pre = moe["paths"]["decode"], moe["paths"]["prefill"]
     entry = {
         "name": "moe_gmm",
@@ -4407,6 +4966,22 @@ def gmm_entry(moe, bwd=None, moe_train=None) -> dict:
     if moe_train is not None:
         entry.update(train_launches=moe_train["launches"],
                      train_backward_launches=moe_train["backward_launches"])
+    if ep is not None:
+        a = ep["a"]
+        entry.update(ep_launches=a["counts"]["moe_gmm"],
+                     ep_launches_by_path=a["paths"],
+                     ep_ranks_launches=sum(r["launches"] for r in ep["b"]),
+                     ep_max_abs_err=a["gmm"]["err"],
+                     ep_rel_err=a["gmm"]["rel"])
+        for tag in ("decode", "prefill"):
+            entry.update({f"ep_{tag}_{k}": a[f"{tag}_gmm"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        entry["library"] += (
+            "; ep_*: kimi-k2 (1 layer, E 384, D 7168, F 2048) on the EP "
+            "path, its launches over a 32 x 128 prefill and 8 decode steps, "
+            "each held to gmm_ref on its own inputs; times per launch over "
+            "one decode step's 3 (C 8) and the prefill's 3 (C 136), "
+            "ep_*_plain_ms gmm_ref eager")
     return entry
 
 
@@ -4516,6 +5091,10 @@ def main() -> int:
         return mesh_child(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--phase-17b":
         return dryrun_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase-18a":
+        return ep_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase-18b":
+        return ep_ranks_child(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4596,6 +5175,7 @@ def main() -> int:
     mesh = phase_mesh()
     dry = phase_dryrun()
     log(f"[pod] phase 17 in {time.perf_counter() - t_pod:.1f}s")
+    ep = phase_ep()
     zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
@@ -4725,7 +5305,7 @@ def main() -> int:
                    "cases, ragged and tail ones and f32 included; "
                    "encdec_rel_err and vlm_rel_err the largest normwise "
                    "error of a prefill's launches",
-    }, gmm_entry(moe, gmm_bwd, moe_train)]
+    }, gmm_entry(moe, gmm_bwd, moe_train, ep)]
     # phase 17: launches of the (1, 1) mesh's runs, and each kernel's calls
     # in the dry run's cells (fake: no launch, extrapolated to full depth)
     mesh_launches = {
@@ -4738,10 +5318,10 @@ def main() -> int:
         if entry["name"] in mesh_launches:
             entry["mesh_launches"] = mesh_launches[entry["name"]]
         entry["dryrun_calls"] = {
-            f"{c['report']['arch']} x {c['report']['shape']}": k["calls"]
+            cell_name(c): k["calls"]
             for c in dry for name, k in c["details"]["kernels"].items()
             if dry_names.get(name, name) == entry["name"]}
-    log(f"[done] phases 3-17 in {time.perf_counter() - t_total:.1f}s; ecg "
+    log(f"[done] phases 3-18 in {time.perf_counter() - t_total:.1f}s; ecg "
         f"rates {ecg['rates']}; zamba2-7b tok/s dense "
         f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
         f" mamba2-780m tok/s {mamba['tok_s']:.1f}; dbrx-132b (8 layers) "

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -40,8 +41,17 @@ from repro_torch.models.registry import build_model
 from repro_torch.training.loop import LoopConfig, train_loop
 
 
+def _line(text: str) -> None:
+    """``text`` and its newline in one write: the ranks of a torchrun job
+    share one stdout, and with unbuffered output (PYTHONUNBUFFERED)
+    ``print`` writes the text and the newline apart, so two ranks' lines
+    could run together on one line."""
+    sys.stdout.write(text + "\n")
+    sys.stdout.flush()
+
+
 def main(argv=None, *, fail_injector: Optional[Callable[[int], None]] = None,
-         log: Callable[[str], None] = print) -> Dict[str, Any]:
+         log: Callable[[str], None] = _line) -> Dict[str, Any]:
     """Parse ``argv``, train, print the reference's two summary lines and
     return the loop's summary.  ``fail_injector`` and ``log`` are passed
     to :func:`train_loop`."""
@@ -82,13 +92,13 @@ def main(argv=None, *, fail_injector: Optional[Callable[[int], None]] = None,
                       global_batch=args.batch)
     shape = dict(zip(mesh.mesh_dim_names, mesh.shape)) \
         if mesh is not None else {"data": 1, "model": 1}
-    print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
+    _line(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"devices={world} device={device} mesh={shape}")
     with axis_rules(rules, mesh):
         out = train_loop(bundle, lambda s: data_iterator(data_cfg, s),
                          loop_cfg, device=device,
                          fail_injector=fail_injector, log=log, mesh=mesh)
-    print(f"done: losses {out['losses'][:2]} -> {out['losses'][-2:]} "
+    _line(f"done: losses {out['losses'][:2]} -> {out['losses'][-2:]} "
           f"restarts={out['restarts']}")
     return out
 

@@ -901,6 +901,20 @@ def test_gmm_kernel_at_dbrx_decode_shapes(cuda_device, c, d, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gmm_takes_an_empty_capacity_without_a_launch(cuda_device, dtype):
+    """C 0 (the EP path's c_loc at kimi-k2's 384 experts and a small
+    batch): an empty (E, 0, F) output and no launch."""
+    x, w = _gmm_inputs(384, 0, 256, 128, dtype, cuda_device)
+    before = gmm.launches
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (384, 0, 128) and got.dtype == dtype
+    assert gmm.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [17, 40, 64, 65, 223, 224, 225])
 @pytest.mark.parametrize("e,d,f", [(16, 6144, 10752), (16, 10752, 6144),
                                    (4, 6144, 1000)],

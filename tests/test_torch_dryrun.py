@@ -147,6 +147,50 @@ def test_kernel_wrappers_take_their_branch_without_data(name):
         op(*bad)
 
 
+def test_ep_moe_layer_counts_its_all_to_all_bytes():
+    """One EP MoE layer on the fake (16, 16) mesh, x (32, 64, 64) bf16:
+    each rank holds 2 x 4 tokens (batch over data, sequence over model),
+    so c_send is ceil8(int(8 * 2 / 16 * 1.25)) = 8 rows for each of the
+    16 ranks of "model".  The counter sees what those imply: the rows out
+    and back (2 x 16 x 8 x 64 bf16) and their int32 expert ids once; the
+    two load-balance means of 16 f32 over data and model; and gathers of
+    the FSDP-split router and expert weights and of the output's
+    sequence."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+
+    dryrun.fake_process_group(256)
+    mesh = make_production_mesh(device_type="cuda")
+    cfg = ModelConfig(name="ep", family="moe", n_layers=1, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128,
+                      n_experts=16, experts_per_token=2, moe_d_ff=32,
+                      dtype="bfloat16", moe_impl="ep_a2a")
+    rules = sh.default_rules()
+    full = {k: torch.empty(v.shape, dtype=torch.bfloat16, device="meta")
+            for k, v in moe.init_moe(torch.Generator(), cfg).items()}
+    counter = LocalOpCounter()
+    with sh.axis_rules(rules, mesh):
+        p = sh.distribute_params(full, moe.moe_specs(cfg), rules, mesh)
+        x = DTensor.from_local(torch.empty(2, 64, 64, dtype=torch.bfloat16,
+                                           device="meta"),
+                               mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        with counter:
+            y, aux = moe.moe_block(p, x, cfg)
+    assert tuple(y.shape) == (32, 64, 64)
+    assert tuple(y.placements) == (Shard(0), Replicate())
+    rows = 16 * 8
+    coll = counter.c.coll_breakdown
+    assert coll["all-to-all"] == 2 * rows * 64 * 2 + rows * 4
+    assert coll["all-reduce"] == 2 * 2 * 16 * 4
+    # router (4, 16) and each expert matrix (1, 4, 32) over "data"; the
+    # output's (2, 4, 64) over "model"
+    assert coll["all-gather"] == (4 * 16 + 3 * 4 * 32 + 2 * 4 * 64) * 2
+
+
 @pytest.mark.parametrize("shape", ["decode_32k", "train_4k"])
 def test_depth_two_qwen3_cells_run_with_exact_param_bytes(shape):
     details = {}

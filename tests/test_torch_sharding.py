@@ -276,12 +276,13 @@ GLOO_TOL = 3e-5
 
 
 def test_four_gloo_ranks_match_one_device(tmp_path):
-    """Reduced qwen3-4b, dbrx-132b and zamba2-7b on a (2, 2) mesh of four
-    gloo ranks (tests/torch_gloo_ranks.py, in its own process) against one
-    device: the train step's loss and grads (each grad on its param's
-    placements), the prefill logits, a decode step's logits and cache;
-    and a checkpoint the mesh's loop saved from DTensors, taken up by the
-    loop with no mesh."""
+    """Reduced qwen3-4b, dbrx-132b (on the sort path, and on the EP path
+    at a capacity where no pair drops) and zamba2-7b on a (2, 2) mesh of
+    four gloo ranks (tests/torch_gloo_ranks.py, in its own process)
+    against one device: the train step's loss and grads (each grad on its
+    param's placements), the prefill logits, a decode step's logits and
+    cache; and a checkpoint the mesh's loop saved from DTensors, taken up
+    by the loop with no mesh."""
     import json
     import os
     import subprocess
@@ -296,7 +297,7 @@ def test_four_gloo_ranks_match_one_device(tmp_path):
         env=env, capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-3000:]
     result = json.loads(out.read_text())
-    for arch in ("qwen3-4b", "dbrx-132b", "zamba2-7b"):
+    for arch in ("qwen3-4b", "dbrx-132b", "dbrx-132b-ep", "zamba2-7b"):
         r = result[arch]
         assert r.pop("grad_placements") is True, arch
         for what, err in r.items():
@@ -318,6 +319,38 @@ def test_train_launcher_takes_multi_pod_on_one_process(tmp_path, capsys):
     assert "devices=1" in capsys.readouterr().out
 
 
+def test_train_launcher_lines_stay_whole_across_processes():
+    """Two processes writing the launcher's lines to one pipe with
+    unbuffered output (PYTHONUNBUFFERED, as torchrun's ranks may run):
+    every line holds one record.  ``print`` writes the text and the
+    newline apart, and ran two ranks' ``done:`` lines together under the
+    test suite's load."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # both start writing at one moment, after their imports
+    code = ("import sys, time\n"
+            "from repro_torch.launch.train import _line\n"
+            "while time.time() < float(sys.argv[1]): pass\n"
+            "for _ in range(2000): _line('done: losses [1] -> [2]')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               PYTHONUNBUFFERED="1")
+    start = str(time.time() + 8)
+    read, write = os.pipe()
+    procs = [subprocess.Popen([sys.executable, "-c", code, start], env=env,
+                              stdout=write) for _ in range(2)]
+    os.close(write)
+    with os.fdopen(read) as f:
+        lines = f.read().splitlines()
+    for p in procs:
+        assert p.wait(timeout=120) == 0
+    assert len(lines) == 4000
+    assert all(line == "done: losses [1] -> [2]" for line in lines)
+
+
 def test_train_launcher_under_torchrun_matches_one_process(tmp_path):
     """``torchrun`` with two gloo ranks: the launcher joins the group,
     builds the (2, 1) mesh and trains on DTensors; each rank's losses
@@ -325,7 +358,6 @@ def test_train_launcher_under_torchrun_matches_one_process(tmp_path):
     written once."""
     import os
     import re
-    import socket
     import subprocess
     import sys
 
@@ -336,15 +368,15 @@ def test_train_launcher_under_torchrun_matches_one_process(tmp_path):
             "1", "--ckpt-every", "2"]
     one = launch_train.main(args + ["--ckpt-dir", str(tmp_path / "one")],
                             log=lambda _: None)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
                OMP_NUM_THREADS="1")
+    # --standalone: torchrun's rendezvous binds a port of its own choosing
+    # when it starts; a port chosen here and freed would stay open to any
+    # other process until torchrun, seconds later, bound it
     done = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-port", str(port), "-m", "repro_torch.launch.train",
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
          *args, "--ckpt-dir", str(tmp_path / "two")],
         env=env, capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-3000:]

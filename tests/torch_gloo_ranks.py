@@ -9,16 +9,22 @@ train step's loss and grads, the prefill logits, one decode step's logits
 and the cache it writes, and of a checkpoint saved from DTensors by the
 mesh's training loop and taken up by the loop with no mesh.
 """
+import dataclasses
 import json
 import os
-import socket
 import sys
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-ARCHS = ("qwen3-4b", "dbrx-132b", "zamba2-7b")
+ARCHS = ("qwen3-4b", "dbrx-132b", "dbrx-132b-ep", "zamba2-7b")
+# (arch, config changes): "dbrx-132b" on the sort path, whose semantics
+# are global at any mesh; "dbrx-132b-ep" on the EP path (its two
+# all-to-alls over "model") at a capacity where no pair drops, where it
+# equals the one-device sort path
+VARIANTS = {"dbrx-132b": ("dbrx-132b", dict(moe_impl="sort")),
+            "dbrx-132b-ep": ("dbrx-132b", dict(capacity_factor=8.0))}
 B, S, PROMPT = 4, 32, 24
 
 
@@ -40,7 +46,8 @@ def _arch(arch, mesh, rank):
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.training.step import value_and_grad
 
-    cfg = reduced_config(arch)
+    arch, change = VARIANTS.get(arch, (arch, {}))
+    cfg = dataclasses.replace(reduced_config(arch), **change)
     bundle = build_model(cfg)
     params = bundle.init(0, "cpu")
     gen = torch.Generator().manual_seed(1)
@@ -124,9 +131,9 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def _rank(rank, world, port, out_path, ckpt_dir):
+def _rank(rank, world, store, out_path, ckpt_dir):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     from repro_torch.launch.mesh import make_mesh
 
@@ -140,13 +147,14 @@ def _rank(rank, world, port, out_path, ckpt_dir):
     dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 if __name__ == "__main__":
     out_path, ckpt_dir = sys.argv[1], sys.argv[2]
     os.makedirs(ckpt_dir, exist_ok=True)
-    mp.spawn(_rank, args=(4, _free_port(), out_path, ckpt_dir), nprocs=4)
+    # the ranks meet through a file beside the output, not a TCP port that
+    # another process could take between its choice and its use
+    store = os.path.abspath(out_path) + ".rendezvous"
+    try:
+        mp.spawn(_rank, args=(4, store, out_path, ckpt_dir), nprocs=4)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
