@@ -34,8 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    gather + SDPA as well; with identity tables (NB*BS == S) it must equal
    the dense kernel bit for bit;
 3c. the flash-attention kernel is held against its plain version, causal
-   at the prefill shapes of qwen3-4b, qwen2-0.5b, zamba2-7b and dbrx-132b
-   (S 8, 40, 704, 2048), f32 and bf16, and without a mask at whisper-
+   at the prefill shapes of qwen3-4b, qwen2-0.5b, zamba2-7b, dbrx-132b,
+   granite-34b (48 heads over 1) and mistral-large-123b (96 over 8) (S 8,
+   40, 704, 2048), f32 and bf16, and without a mask at whisper-
    tiny's encoder (B 8, 1,500 frames, 6/6 heads of 64) and cross-attention
    (4 queries against the 1,500 frames) in bf16 and at a ragged shape in
    bf16 and f32, each call on the path its dtype picks (bf16 the wgmma
@@ -251,7 +252,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    (f32) at capacity 8: each rank's shard of the EP block's output and
    the load-balance loss equal the one-process sort path's within 1e-4,
    each rank launched gmm 3 times and dropped no pair;
-19. the last lines are the card (nvidia-smi), a JSON line of every kernel
+19. granite-34b (d_model 6144, 48 heads over 1 KV head, d_ff 24576) and
+   mistral-large-123b (d_model 12288, 96 over 8, d_ff 28672, rope_theta
+   1e6) at their published widths (bf16, random weights from a seed), cut
+   to 55 and 21 of their 88 layers (DENSE_LAYERS: ~60 GB each), each in a
+   process of its own (``chip_smoke.py --phase-19 ARCH OUT``): the
+   launcher on the reduced config (--engine --paged), then the first 8 of
+   phase 4's 16 requests (DENSE_REQUESTS) through a dense ServeEngine (8
+   slots, 1024-token cache) and a paged one (16-token blocks, worst-case
+   pool of 512).  Gates: every request finishes; decode = layers x decode
+   steps (dense; the paged kernel never), paged = layers x decode steps
+   (paged; the dense kernel never), flash = layers x prefill calls; paged
+   tokens equal dense tokens; one mid-run decode step's logits (dense and
+   paged) and one 700-token prefill's first-token logits equal the same
+   calls with the plain versions swapped in, normwise within LOGIT_TOL
+   (the residual stream's distance after each layer printed beside it);
+   each flash launch of that prefill against its plain version (TOL and
+   FLASH_NORM_TOL).  Printed: params, GB and init seconds, tok/s and the
+   prefill/decode split, a warm decode step's kernels, device busy ms
+   and idle share (dense and paged), the flash kernel's times at that
+   prefill's inputs beside its plain version, SDPA and the bound, peak
+   memory, and the requests whose tokens equal the one-request oracle
+   (not gated);
+20. the last lines are the card (nvidia-smi), a JSON line of every kernel
    with its launches, error and times, and the JSON result line.
 
 TF32 is switched off for matmuls and cuDNN, so that f32 comparisons on the
@@ -407,14 +430,29 @@ MOE_LOGIT_TOL = 2e-2
 # prompt lengths of phase 3c
 ATTN_SHAPES = {"qwen3-4b": (32, 8, 128), "qwen2-0.5b": (14, 2, 64),
                "zamba2-7b": (32, 32, 112)}
-# phases 3 and 3b also take the GQA groups wider than 8 heads of the two
-# dense configs still to port (src/repro/configs/): granite-34b (MQA, 48
-# heads over 1) and mistral-large-123b (96 over 8); phase 3c also takes
+# phases 3-3c also take the GQA groups wider than 8 heads of the two
+# dense configs phase 19 serves cut in depth: granite-34b (MQA, 48 heads
+# over 1) and mistral-large-123b (96 over 8); phase 3c also takes
 # dbrx-132b's prefill attention (phase 12)
-DECODE_SHAPES = {**ATTN_SHAPES, "granite-34b": (48, 1, 128),
-                 "mistral-large-123b": (96, 8, 128)}
-FLASH_SHAPES = {**ATTN_SHAPES, "dbrx-132b": (48, 8, 128)}
+WIDE_GQA_SHAPES = {"granite-34b": (48, 1, 128),
+                   "mistral-large-123b": (96, 8, 128)}
+DECODE_SHAPES = {**ATTN_SHAPES, **WIDE_GQA_SHAPES}
+FLASH_SHAPES = {**ATTN_SHAPES, "dbrx-132b": (48, 8, 128),
+                **WIDE_GQA_SHAPES}
 FLASH_LENGTHS = (8, 40, 704, 2048)
+# Phase 19 serves granite-34b and mistral-large-123b at their published
+# widths with the depth cut so that the bf16 weights fit one 80 GB card
+# beside the caches and the prefill buffers: 55 of 88 layers (29.8 B
+# params, 59.5 GB) and 21 of 88 (29.9 B, 59.7 GB); all 88 are 94.5 and
+# 245 GB.  Each runs in a process of its own (``--phase-19 ARCH OUT``), so
+# that it starts on an empty allocator.
+DENSE_LAYERS = {"granite-34b": 55, "mistral-large-123b": 21}
+# Phase 19's engines take the first 8 of phase 4's 16 requests (prompts of
+# 32-521 tokens; its prefill gate still takes the burst's longest, 700).
+# With all 16 the two children took 186.9 s on an NVIDIA H100 80GB HBM3
+# at 700 W, over the phase's 150 s share of the script's time; the
+# one-request oracle at batch 1 was 34 s of granite-34b's 116 s.
+DENSE_REQUESTS = 8
 # Phase 14a: the grouped matmul's backward (dX^T = gmm(W, dY^T), dW =
 # gmm(X^T, dY)) at dbrx-132b's prefill shape (E, C, D, F) in bf16, and one
 # f32 shape; kernel vs autograd through gmm_ref at GMM_TOL / GMM_NORM_TOL
@@ -756,11 +794,18 @@ def load_model(torch, device: str, reduced: bool, arch: str = "qwen3-4b",
     t0 = time.perf_counter()
     params = bundle.init(SEED, device=device)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _tensors(params))
+    n_params, n_bytes = param_size(params)
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f}B params in {cfg.dtype}, init "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{n_params / 1e9:.3f}B params in {cfg.dtype} ({n_bytes / 1e9:.2f} "
+        f"GB), init {time.perf_counter() - t0:.1f}s")
     return cfg, bundle, params
+
+
+def param_size(params) -> tuple:
+    """(elements, bytes) of a param tree."""
+    tensors = list(_tensors(params))
+    return (sum(t.numel() for t in tensors),
+            sum(t.numel() * t.element_size() for t in tensors))
 
 
 def _tensors(tree):
@@ -1980,11 +2025,43 @@ def plain_swaps():
              paged_decode_attention_ref)]
 
 
-def prefill_gate(torch, bundle, params, prompt, device, tag):
+def with_streams(swaps: list) -> tuple:
+    """``swaps`` (for ``swapped``) plus a recorder of the residual stream
+    after each transformer layer (transformer._mlp_residual's output);
+    returns (the swaps, the list the recorder fills)."""
+    import repro_torch.models.transformer as transformer_mod
+    inner, out = transformer_mod._mlp_residual, []
+
+    def record(*args):
+        x = inner(*args)
+        out.append(x)
+        return x
+    return swaps + [(transformer_mod, "_mlp_residual", record)], out
+
+
+def drift_line(a: list, b: list, rows=None) -> tuple:
+    """Where a gap between two runs grows: the normwise distance of each
+    layer's residual stream, run ``a`` against run ``b`` (from
+    with_streams; over ``rows`` of the batch), and a line that names it
+    at five depths.  Empty for a model whose layers are not the
+    transformer's."""
+    drift = [rel_err(x if rows is None else x[rows],
+                     y if rows is None else y[rows]) for x, y in zip(a, b)]
+    if not drift:
+        return drift, ""
+    n = len(drift)
+    at = sorted({1, max(n // 4, 1), max(n // 2, 1), max(3 * n // 4, 1), n})
+    return drift, ("; residual stream kernels vs plain after layer "
+                   + ", ".join(f"{i}: {drift[i - 1]:.3g}" for i in at))
+
+
+def prefill_gate(torch, bundle, params, prompt, device, tag,
+                 tol: float = HYBRID_LOGIT_TOL):
     """One exact-length prefill of ``prompt`` with the kernels, and again
     with the plain versions swapped in: the first-token logits must be
-    finite and agree normwise within HYBRID_LOGIT_TOL.  Returns (relative
-    error, the inputs of every SSD and flash launch of the kernel run)."""
+    finite and agree normwise within ``tol``.  Returns (relative error,
+    the inputs of every SSD and flash launch of the kernel run, and under
+    "drift" the residual stream's distance by layer: drift_line)."""
     import repro_torch.models.attention as attention_mod
     import repro_torch.models.mamba2 as mamba2_mod
     seen = {"ssd_scan": [], "flash_attention": []}
@@ -2001,20 +2078,56 @@ def prefill_gate(torch, bundle, params, prompt, device, tag):
              "lens": torch.tensor([len(prompt)], dtype=torch.int32,
                                   device=device),
              "cache_len": len(prompt)}
-    logits_k, _ = swapped([(mamba2_mod, "ssd_scan", rec_ssd),
-                           (attention_mod, "flash_attention", rec_flash)],
-                          bundle.prefill_slotted, params, batch)
-    logits_p, _ = swapped(plain_swaps(), bundle.prefill_slotted, params,
-                          batch)
+    swaps_k, streams_k = with_streams(
+        [(mamba2_mod, "ssd_scan", rec_ssd),
+         (attention_mod, "flash_attention", rec_flash)])
+    swaps_p, streams_p = with_streams(plain_swaps())
+    logits_k, _ = swapped(swaps_k, bundle.prefill_slotted, params, batch)
+    logits_p, _ = swapped(swaps_p, bundle.prefill_slotted, params, batch)
     rel = rel_err(logits_k, logits_p)
+    err = float((logits_k.float() - logits_p.float()).abs().max())
+    seen["drift"], where = drift_line(streams_k, streams_p)
+    del streams_k, streams_p
     log(f"{tag} prefill of {len(prompt)} tokens: first-token logits "
-        f"kernels vs plain: rel_err={rel:.4g} (tol {HYBRID_LOGIT_TOL}), "
-        f"argmax equal {bool(logits_k.argmax() == logits_p.argmax())}")
-    if not torch.isfinite(logits_k).all() or not rel <= HYBRID_LOGIT_TOL:
+        f"kernels vs plain: rel_err={rel:.4g} (tol {tol}), max_abs_err="
+        f"{err:.4g}, argmax equal "
+        f"{bool(logits_k.argmax() == logits_p.argmax())}{where}")
+    if not torch.isfinite(logits_k).all() or not rel <= tol:
         raise RuntimeError(f"{tag} prefill logits, kernels vs plain: "
-                           f"relative error {rel} over {HYBRID_LOGIT_TOL}, "
-                           f"or not finite")
+                           f"relative error {rel} over {tol}, or not finite"
+                           f"{where}")
     return rel, seen
+
+
+def decode_logits_gate(torch, tag, step, params, engine, batch,
+                       tol: float) -> float:
+    """One mid-run decode step (``batch`` from mid_run_batch) with the
+    kernels, and again with the plain versions swapped in, each from a
+    copy of the engine's cache: the logits of the active rows must be
+    finite and agree normwise within ``tol``.  Returns (the relative
+    error, the residual stream's drift by layer: drift_line)."""
+    active = batch["active"]
+
+    def clone():
+        return {k: v.clone() for k, v in engine.cache.items()}
+    swaps_k, streams_k = with_streams([])
+    swaps_p, streams_p = with_streams(plain_swaps())
+    logits_k, _ = swapped(swaps_k, step, params, clone(), batch)
+    logits_p, _ = swapped(swaps_p, step, params, clone(), batch)
+    if not torch.isfinite(logits_k).all():
+        raise RuntimeError(f"{tag} non-finite decode-step logits")
+    lk, lp = logits_k[active].float(), logits_p[active].float()
+    rel = rel_err(lk, lp)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    drift, where = drift_line(streams_k, streams_p, active)
+    log(f"{tag} decode step {engine.decode_steps}: logits kernels vs "
+        f"plain: rel_err={rel:.4g} (tol {tol}), max_abs_err="
+        f"{float((lk - lp).abs().max()):.4g}, argmax agreement {agree:.3f}"
+        f"{where}")
+    if not rel <= tol:
+        raise RuntimeError(f"{tag} decode-step logits, kernels vs plain: "
+                           f"relative error {rel} over {tol}{where}")
+    return rel, drift
 
 
 def profile_prefill(torch, tag, bundle, params, prompt, device) -> dict:
@@ -2151,27 +2264,12 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
 
         # one mid-run decode step: kernels vs plain versions, same state
         batch = mid_run_batch(torch, engine, reqs(), device)
-        active = batch["active"]
         step = bundle.decode_paged if paged else bundle.decode_slotted
-
-        def clone():
-            return {k: v.clone() for k, v in engine.cache.items()}
-        logits_k, _ = step(params, clone(), batch)
-        logits_p, _ = swapped(plain_swaps(), step, params, clone(), batch)
-        if not torch.isfinite(logits_k).all():
-            raise RuntimeError(f"{tag} non-finite decode-step logits")
-        step_rel = rel_err(logits_k[active], logits_p[active])
-        agree = float((logits_k[active].argmax(-1)
-                       == logits_p[active].argmax(-1)).float().mean())
-        log(f"{tag} decode step {engine.decode_steps}: logits kernels vs "
-            f"plain: rel_err={step_rel:.4g} (tol {HYBRID_LOGIT_TOL}), "
-            f"argmax agreement {agree:.3f}")
-        if not step_rel <= HYBRID_LOGIT_TOL:
-            raise RuntimeError(f"{tag} decode-step logits, kernels vs plain:"
-                               f" relative error {step_rel} over "
-                               f"{HYBRID_LOGIT_TOL}")
+        decode_logits_gate(torch, tag, step, params, engine, batch,
+                           HYBRID_LOGIT_TOL)
         step_ms = 1e3 * split["decode"][1] / max(split["decode"][0], 1)
-        profile_decode(torch, f"{tag}[profile]", step, params, clone(),
+        profile_decode(torch, f"{tag}[profile]", step, params,
+                       {k: v.clone() for k, v in engine.cache.items()},
                        batch, step_ms)
         if not paged:
             # the dense decode kernel at hd 112, at this step's caches
@@ -4294,17 +4392,20 @@ def dryrun_child(out_path: str) -> int:
     return 0
 
 
-def _child(flag: str, tag: str) -> object:
-    """Run this script with ``flag`` in a process of its own; its JSON."""
-    out = ROOT / "build" / f"chip_smoke_{tag}.json"
+def _child(flag: str, tag: str, *args: str, echo: str = "[dryrun]"
+           ) -> object:
+    """Run this script with ``flag``, ``args`` and an output path in a
+    process of its own; its JSON.  The child's stdout lines that start
+    with ``echo`` are logged here."""
+    out = ROOT / "build" / f"chip_smoke_{tag.replace(' ', '_')}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.unlink(missing_ok=True)
     t0 = time.perf_counter()
     done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag,
-                           str(out)], capture_output=True, text=True,
+                           *args, str(out)], capture_output=True, text=True,
                           timeout=CHILD_TIMEOUT_S, cwd=ROOT)
     for line in done.stdout.splitlines():
-        if line.startswith("[dryrun]"):
+        if line.startswith(echo):
             log(line)
     if done.returncode != 0 or not out.exists():
         raise RuntimeError(f"phase {tag} exited {done.returncode}:\n"
@@ -4910,6 +5011,217 @@ def phase_ep() -> dict:
     return dict(a=r, b=ranks)
 
 
+def phase_dense_arch(torch, device: str = "cuda", reduced: bool = False,
+                     arch: str = "granite-34b", n_layers: int = 0,
+                     cache_len: int = 1024, lengths=(32, 700)) -> dict:
+    """Phase 19 for one dense config at its published widths cut to
+    ``n_layers`` (default DENSE_LAYERS[arch]): the launcher at the reduced
+    size, then the first DENSE_REQUESTS of phase 4's requests through a
+    dense engine and a paged one with the launch, token and logits gates;
+    the burst's longest prompt prefilled alone, its logits gated and each
+    of its flash launches held to the plain version; a warm decode step
+    profiled.  Returns the measurements as JSON values.  The keywords let
+    the flow be rehearsed on the CPU at toy size."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import EngineConfig, ServeEngine, greedy_reference
+
+    log(f"[{arch}] launcher: repro_torch.launch.serve.main --arch {arch} "
+        f"--reduced --engine --paged")
+    t0 = time.perf_counter()
+    launch_serve.main(["--arch", arch, "--reduced", "--engine", "--paged",
+                       "--device", device, "--seed", str(SEED)])
+    log(f"[{arch}] launcher done in {time.perf_counter() - t0:.1f}s")
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, bundle, params = load_model(
+        torch, device, reduced, arch,
+        0 if reduced else n_layers or DENSE_LAYERS[arch])
+    n = cfg.n_layers
+    out = dict(layers=n, published_layers=get_config(arch).n_layers,
+               init_s=time.perf_counter() - t0,
+               init_peak_gb=peak_gb(torch, device))
+    out["n_params"], out["n_bytes"] = param_size(params)
+    slots, max_new = 8, 16
+
+    def reqs():
+        return burst_requests(cfg, max_new, lengths)[:DENSE_REQUESTS]
+    tokens = {}
+    for kind in ("dense", "paged"):
+        paged = kind == "paged"
+        tag = f"[{arch}{' paged' if paged else ''}]"
+        engine = ServeEngine(bundle, params, EngineConfig(
+            slots=slots, cache_len=cache_len, pad_to=8, max_prefill_batch=8,
+            paged=paged, block_size=16), device=device)
+        done, wall, counts, stats = engine_run(torch, engine, reqs)
+        if len(done) != DENSE_REQUESTS or not all(
+                r.done and len(r.out) == max_new and not r.oom
+                for r in done):
+            raise RuntimeError(f"{tag} not every request finished with its "
+                               f"tokens")
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        other = "decode_attention" if paged else "paged_decode_attention"
+        check_launches(counts, {
+            decode: stats["decode_steps"] * n, other: 0,
+            "flash_attention": stats["prefill_calls"] * n})
+        tokens[kind] = {r.rid: r.out for r in done}
+        if paged:
+            same = sum(tokens[kind][rid] == tokens["dense"][rid]
+                       for rid in tokens[kind])
+            if same != len(done):
+                raise RuntimeError(f"{tag} paged engine tokens equal the "
+                                   f"dense engine's for {same}/{len(done)} "
+                                   f"requests, want all")
+        step_kind = "paged" if paged else "slotted"
+        split = split_run(torch, engine, {f"prefill_{step_kind}": "prefill",
+                                          f"decode_{step_kind}": "decode"},
+                          reqs())
+        n_tok = sum(len(r.out) for r in done)
+        log(f"{tag} engine: {len(done)} requests, max_new {max_new}, slots "
+            f"{slots}, cache_len {cache_len}, pad_to 8"
+            f"{', block_size 16' if paged else ''}: {n_tok} tokens in "
+            f"{wall:.3f}s = {n_tok / wall:.1f} tok/s; stats {stats}; launches"
+            f" {counts} ({decode} = {stats['decode_steps']} x {n}, flash = "
+            f"{stats['prefill_calls']} x {n})"
+            + (f"; tokens equal to the dense engine's for {same}/"
+               f"{len(done)} requests" if paged else ""))
+
+        # one mid-run decode step: kernels vs plain versions, same state
+        batch = mid_run_batch(torch, engine, reqs(), device)
+        step = bundle.decode_paged if paged else bundle.decode_slotted
+        step_rel, drift = decode_logits_gate(torch, tag, step, params,
+                                             engine, batch, LOGIT_TOL)
+        step_ms = 1e3 * split["decode"][1] / max(split["decode"][0], 1)
+        prof = profile_decode(torch, f"{tag}[profile]", step, params,
+                              {k: v.clone() for k, v in engine.cache.items()},
+                              batch, step_ms)
+        out[kind] = dict(counts=counts, stats=stats, wall=wall,
+                         tok_s=n_tok / wall, split=split, step_rel=step_rel,
+                         step_drift=drift, step_ms=step_ms)
+        if paged:
+            out[kind]["same_as_dense"] = same
+        if prof is not None:
+            busy, by_name = prof
+            out[kind].update(
+                busy_ms=busy, idle_share=1 - busy / step_ms,
+                kernels=sum(k for k, _ in by_name.values()) // 3,
+                attention_ms=sum(t for name, (_, t) in by_name.items()
+                                 if "decode_attention" in name) / 3e3)
+        engine.reset()
+        del engine, batch
+
+    # greedy parity with the one-request oracle: reported, not gated
+    t0 = time.perf_counter()
+    oracle = sum(greedy_reference(bundle, params, r.prompt, r.max_new,
+                                  cache_len, device=device)
+                 == tokens["dense"][r.rid] for r in reqs())
+    log(f"[{arch}] greedy tokens equal to greedy_reference: {oracle}/"
+        f"{DENSE_REQUESTS} requests (reported, not gated; "
+        f"{time.perf_counter() - t0:.1f}s)")
+
+    # one prefill's first-token logits, kernels vs plain versions; the
+    # flash kernel at the inputs that prefill gave it
+    prompt = max((r.prompt for r in burst_requests(cfg, max_new, lengths)),
+                 key=len)
+    pre_rel, seen = prefill_gate(torch, bundle, params, prompt, device,
+                                 f"[{arch}]", LOGIT_TOL)
+    if len(seen["flash_attention"]) != n:
+        raise RuntimeError(f"[{arch}] one prefill launched "
+                           f"{len(seen['flash_attention'])} flash calls, "
+                           f"want {n}")
+    flash = flash_case_ms(torch, seen["flash_attention"])
+    against = ratios(flash["ms"], bound=flash["bound_ms"],
+                     sdpa=flash["library_ms"])
+    log(f"[kernel] flash_attention at one {len(prompt)}-token {arch} "
+        f"prefill's {n} launches (H={cfg.n_heads} KVH={cfg.n_kv_heads} hd="
+        f"{cfg.resolved_head_dim}; per launch, averaged): max_abs_err="
+        f"{flash['err']:.3g} normwise {flash['rel']:.3g} (tol "
+        f"{FLASH_NORM_TOL[cfg.dtype]}) ms={flash['ms']:.4f} "
+        f"({flash['tflops']:.1f} TFLOP/s) plain_ms={flash['plain_ms']:.4f} "
+        f"sdpa_ms={flash['library_ms']:.4f} bound_ms="
+        f"{flash['bound_ms']:.4f} ({flash['bound_by']}; {against})")
+    out.update(requests=DENSE_REQUESTS, oracle_same=oracle,
+               prefill_rel=pre_rel, flash=flash,
+               prefill_drift=seen["drift"], prompt=len(prompt),
+               peak_gb=peak_gb(torch, device))
+    d, p = out["dense"], out["paged"]
+    log(f"[{arch}] {n} of {out['published_layers']} layers: tok/s dense "
+        f"{d['tok_s']:.1f}, paged {p['tok_s']:.1f}; peak device memory "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
+def dense_child(arch: str, out_path: str, device: str = "cuda",
+                **kw) -> int:
+    """Phase 19 for ``arch`` in its own process (phase_dense_arch, its
+    keywords ``kw``); results to ``out_path`` as JSON."""
+    import os
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    r = phase_dense_arch(torch, device, arch=arch, **kw)
+    Path(out_path).write_text(json.dumps(r))
+    return 0
+
+
+def phase_dense_archs() -> dict:
+    """Phase 19: granite-34b and mistral-large-123b, each cut in depth and
+    served in a process of its own; every gate runs in the child, which
+    exits non-zero when one fails.  Returns each arch's results."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch in DENSE_LAYERS:
+        r = out[arch] = _child("--phase-19", f"19 {arch}", arch, echo="")
+        d, p = r["dense"], r["paged"]
+        log(f"[dense] {arch}: {r['layers']} of {r['published_layers']} "
+            f"layers, {r['n_params'] / 1e9:.3f}B params, "
+            f"{r['n_bytes'] / 1e9:.2f} GB, init {r['init_s']:.1f}s (peak "
+            f"{r['init_peak_gb']:.2f} GB), run peak {r['peak_gb']:.2f} GB; "
+            f"tok/s dense {d['tok_s']:.1f}, paged {p['tok_s']:.1f}; logits "
+            f"vs plain: prefill {r['prefill_rel']:.3g}, decode step "
+            f"{d['step_rel']:.3g} / {p['step_rel']:.3g} (tol {LOGIT_TOL}); "
+            f"paged = dense tokens {p['same_as_dense']}/{r['requests']}, "
+            f"oracle {r['oracle_same']}/{r['requests']}")
+    log(f"[dense] phase 19 in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def dense_arch_entries(kernels: list, dense: dict) -> None:
+    """Phase 19's results into the ``kernels`` line's entries: each
+    arch's launches of the decode and flash kernels in its dense engine
+    run and of the paged kernel in its paged run (``dense_arch_launches``),
+    and the flash kernel's times at one prefill's inputs
+    (``dense_arch_prefill``)."""
+    by_name = {e["name"]: e for e in kernels}
+    cut = ", ".join(f"{arch} ({r['layers']} of {r['published_layers']} "
+                    f"layers)" for arch, r in dense.items())
+    for name, run in (("decode_attention", "dense"),
+                      ("paged_decode_attention", "paged"),
+                      ("flash_attention", "dense")):
+        entry = by_name[name]
+        entry["dense_arch_launches"] = {
+            arch: r[run]["counts"][name] for arch, r in dense.items()}
+        entry["library"] += (f"; dense_arch_launches: phase 19's {run} "
+                             f"engine runs of {cut}")
+    flash = by_name["flash_attention"]
+    flash["dense_arch_prefill"] = {
+        arch: {"max_abs_err": r["flash"]["err"],
+               "rel_err": r["flash"]["rel"],
+               **{k: r["flash"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}}
+        for arch, r in dense.items()}
+    flash["library"] += ("; dense_arch_prefill: per launch over one "
+                         "700-token prefill's launches of each")
+
+
 def gmm_entry(moe, bwd=None, moe_train=None, ep=None) -> dict:
     """The ``kernels`` line's entry for the grouped matmul, from phase 12:
     launches of the dense engine's run; times per launch over one decode
@@ -5095,6 +5407,9 @@ def main() -> int:
         return ep_child(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--phase-18b":
         return ep_ranks_child(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase-19":
+        return dense_child(sys.argv[2], sys.argv[3])
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5176,6 +5491,8 @@ def main() -> int:
     dry = phase_dryrun()
     log(f"[pod] phase 17 in {time.perf_counter() - t_pod:.1f}s")
     ep = phase_ep()
+    torch.cuda.empty_cache()
+    dense = phase_dense_archs()
     zc, zp = zamba["dense"]["counts"], zamba["paths"]
 
     kernels = [{
@@ -5306,6 +5623,7 @@ def main() -> int:
                    "encdec_rel_err and vlm_rel_err the largest normwise "
                    "error of a prefill's launches",
     }, gmm_entry(moe, gmm_bwd, moe_train, ep)]
+    dense_arch_entries(kernels, dense)
     # phase 17: launches of the (1, 1) mesh's runs, and each kernel's calls
     # in the dry run's cells (fake: no launch, extrapolated to full depth)
     mesh_launches = {
@@ -5321,7 +5639,8 @@ def main() -> int:
             cell_name(c): k["calls"]
             for c in dry for name, k in c["details"]["kernels"].items()
             if dry_names.get(name, name) == entry["name"]}
-    log(f"[done] phases 3-18 in {time.perf_counter() - t_total:.1f}s; ecg "
+    log(f"[done] phases 3-19 in {time.perf_counter() - t_total:.1f}s, the "
+        f"script {time.perf_counter() - t_start:.1f}s; ecg "
         f"rates {ecg['rates']}; zamba2-7b tok/s dense "
         f"{zamba['dense']['tok_s']:.1f}, paged {zamba['paged']['tok_s']:.1f};"
         f" mamba2-780m tok/s {mamba['tok_s']:.1f}; dbrx-132b (8 layers) "
@@ -5336,7 +5655,10 @@ def main() -> int:
         f"{encdec['train']['frames_per_s']:.0f} frames/s; qwen2-vl-2b "
         f"decode {vlm['tok_s']:.1f} tok/s, training "
         f"{vlm['train']['tokens_per_s']:.0f} tokens/s, peak "
-        f"{vlm['train']['peak_gb']:.2f} GB")
+        f"{vlm['train']['peak_gb']:.2f} GB; " + "; ".join(
+            f"{arch} ({r['layers']} layers) tok/s dense "
+            f"{r['dense']['tok_s']:.1f}, paged {r['paged']['tok_s']:.1f}"
+            for arch, r in dense.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

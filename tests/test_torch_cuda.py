@@ -636,7 +636,8 @@ def test_ssd_and_flash_refuse_what_the_kernels_do_not_take(cuda_device):
 
 # ------------------------------------------------------- flash attention
 # (B, S, H, KVH, hd): qwen3-4b, qwen2-0.5b (rep 7) and zamba2-7b prefill
-# widths, ragged S, and the reduced configs' hd 32
+# widths, ragged S, the reduced configs' hd 32, and granite-34b's (MQA, 48
+# heads over 1) and mistral-large-123b's (96 over 8) heads at a short S
 FLASH_SHAPES = [
     (1, 704, 32, 8, 128),
     (2, 40, 14, 2, 64),
@@ -645,6 +646,8 @@ FLASH_SHAPES = [
     (2, 65, 8, 4, 32),
     (1, 200, 4, 1, 64),
     (1, 129, 6, 3, 128),
+    (1, 65, 48, 1, 128),
+    (1, 65, 96, 8, 128),
 ]
 
 
@@ -667,17 +670,19 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, h, kvh, hd,
 
 
 # (H, KVH, hd) of every model whose prefill runs the flash kernel:
-# qwen3-4b, qwen2-0.5b, zamba2-7b's shared block (chip_smoke.ATTN_SHAPES)
-# and dbrx-132b; prompt lengths around the 64-row tiles, and long ones
+# qwen3-4b, qwen2-0.5b, zamba2-7b's shared block (chip_smoke.ATTN_SHAPES),
+# dbrx-132b, granite-34b and mistral-large-123b; prompt lengths around the
+# 64-row tiles, and long ones
 FLASH_WGMMA_SHAPES = [(32, 8, 128), (14, 2, 64), (32, 32, 112),
-                      (48, 8, 128)]
+                      (48, 8, 128), (48, 1, 128), (96, 8, 128)]
 FLASH_WGMMA_LENGTHS = [1, 13, 63, 64, 65, 127, 700, 2048]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", FLASH_WGMMA_LENGTHS)
 @pytest.mark.parametrize("h,kvh,hd", FLASH_WGMMA_SHAPES,
-                         ids=["qwen3", "qwen2", "zamba2", "dbrx"])
+                         ids=["qwen3", "qwen2", "zamba2", "dbrx",
+                              "granite", "mistral"])
 def test_flash_tensor_core_path_matches_plain_version(cuda_device, h, kvh,
                                                       hd, s):
     """bf16 prefill through the wgmma kernel (the path the entry point

@@ -22,7 +22,12 @@ from repro_torch.serve import (
     greedy_reference,
 )
 from repro_torch.weights import params_from_jax
-from torch_parity import configs, one_thread, params  # noqa: F401 (a fixture)
+from torch_parity import (  # noqa: F401 (one_thread: a fixture)
+    SERVED_ARCHS,
+    configs,
+    one_thread,
+    params,
+)
 
 CACHE_LEN = 48
 BURST = [(4, 6), (11, 3), (7, 9), (16, 5), (5, 5), (9, 8), (13, 4), (6, 7)]
@@ -46,7 +51,7 @@ def _refs(bundle, params_, reqs):
                                     CACHE_LEN, device="cpu") for r in reqs}
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_engine_matches_own_oracle_and_reference_engine(arch):
     """Mixed burst through 4 slots (slot reuse, padded buckets): every
     request's tokens equal the port's scalar oracle and the reference

@@ -26,7 +26,12 @@ from repro_torch.serve import (
     blocks_for,
     greedy_reference,
 )
-from torch_parity import configs, one_thread, params  # noqa: F401 (a fixture)
+from torch_parity import (  # noqa: F401 (one_thread: a fixture)
+    SERVED_ARCHS,
+    configs,
+    one_thread,
+    params,
+)
 
 CACHE_LEN = 48
 BS = 8                      # block size used throughout
@@ -57,7 +62,7 @@ def _paged(slots=6, n_blocks=None, pad_to=8, cls=EngineConfig, **kw):
 
 
 # ------------------------------------------------------- engine parity
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_paged_engine_matches_reference_paged_engine(arch):
     """The same requests through both packages' paged engines (4 slots,
     an 18-block pool): equal tokens, equal stats, and every request equal
@@ -81,7 +86,7 @@ def test_paged_engine_matches_reference_paged_engine(arch):
     assert engine.stats() == jax_engine.stats()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_paged_engine_equals_dense_engine_at_full_span(arch):
     """NB*BS == cache_len and a worst-case pool: same admission order,
     same batches, same attention arithmetic, so the paged engine's tokens

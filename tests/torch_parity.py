@@ -43,6 +43,11 @@ ARCHS = ["qwen3-4b", "qwen2-0.5b", "qwen2-0.5b-rep7"]
 # reduced dbrx-132b (8 experts, top-2) and reduced kimi-k2 (the same, plus
 # a shared expert); ``configs`` and ``params`` serve them as they do ARCHS
 MOE_ARCHS = ["dbrx-132b", "kimi-k2-1t-a32b"]
+# the dense configs the engines serve, reduced: qwen2-0.5b, qwen3-4b,
+# granite-34b (MQA: a KV cache one head wide) and mistral-large-123b
+# (rope_theta 1e6)
+SERVED_ARCHS = ["qwen2-0.5b", "qwen3-4b", "granite-34b",
+                "mistral-large-123b"]
 
 
 def configs(arch):
