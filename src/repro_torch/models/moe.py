@@ -27,7 +27,10 @@ change from run to run.  Here dispatch is an assignment (each kept slot
 receives one row; dropped pairs go to a spare row past the buffer), and
 the combine gathers each token's k rows and sums them over k in a fixed
 order.  Nothing in the block syncs with the host: every capacity is a
-Python int from shapes.
+Python int from shapes.  With :data:`repro_torch.trace.TRACER` on, each
+call's per-expert pair counts (which the load-balance loss computes
+anyway) are kept by reference, for a reader to count the pairs dropped
+and the experts reached once the run is over.
 
 Under a mesh (DTensor inputs) the sort path runs on local shards with the
 reference's sort path's semantics, which are global: every rank holds the
@@ -74,6 +77,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.kernels.moe_gmm import gmm
 from repro_torch.models.common import dense_init
+from repro_torch.trace import TRACER
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig,
@@ -199,6 +203,8 @@ def _moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     # ---- sort-based dispatch -------------------------------------------
     # kept: within capacity and one of the experts held here, [e0, e0+el)
     cap = expert_capacity(t, cfg)
+    if TRACER.on:   # the pairs each expert drew, read after the run
+        TRACER.moe(counts, cap, t)
     el = e // experts[1]
     e0 = experts[0] * el
     order, sorted_e, pos, keep = _dispatch_local(

@@ -51,6 +51,7 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.buckets import build_buckets
 from repro_torch.serve.paged import BlockPool
+from repro_torch.trace import TRACER
 
 
 @dataclasses.dataclass
@@ -70,11 +71,16 @@ class ServeRequest:
     oom: bool = False              # shed by the paged engine when the block
     #   pool ran dry mid-decode (out = partial tokens, prefix of reference)
     blocks_held: int = 0           # peak cache blocks held (paged engine)
-    # measured lifecycle (seconds from the run's t0)
+    # lifecycle on the caller's clock (the ``now`` it passes to ``tick``;
+    # seconds from the run's t0, or decode steps on ``run``'s virtual
+    # clock): t_admit and t_first are the start of the tick that ran the
+    # request's prefill, not when its first token reached the host; the
+    # host-clock times are the tracer's ``request.*`` events
+    # (repro_torch/trace.py)
     t_arrival: float = 0.0
     t_admit: float = 0.0
-    t_first: float = 0.0           # first token emitted (prefill argmax)
-    t_done: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0            # the start of the tick it left in
 
     @property
     def latency_s(self) -> float:
@@ -125,6 +131,7 @@ class ServeEngine:
         self.bundle = bundle
         self.params = params
         self.cfg = cfg
+        self.trace_tag = TRACER.engine_tag()
         self._specs = {k: v for k, v in bundle.cache_specs().items()
                        if k != "len"}
         self.paged = cfg.paged
@@ -181,6 +188,8 @@ class ServeEngine:
         """Queue a request.  Returns ``False`` (and flags the request
         ``rejected``) when the bounded admission queue is full.  Malformed
         requests raise."""
+        if TRACER.on:
+            TRACER.event("request.submit", self.trace_tag, req.rid)
         if len(req.prompt) > self.cfg.cache_len:
             raise ValueError(f"request {req.rid}: prompt length "
                              f"{len(req.prompt)} exceeds cache_len "
@@ -198,6 +207,9 @@ class ServeEngine:
             req.rejected = True
             req.t_done = req.t_arrival
             self.rejected.append(req)
+            if TRACER.on:
+                TRACER.event("request.done", self.trace_tag, req.rid,
+                             "rejected")
             return False
         self.waiting.append(req)
         return True
@@ -272,12 +284,15 @@ class ServeEngine:
         if self.pool.free_slot(slot):
             self._tables_dirty = True
 
-    def _refresh_tables(self) -> None:
+    def _refresh_tables(self) -> bool:
         """Push the allocator's block tables to the device cache whenever
-        allocation changed since the last dispatch."""
-        if self._tables_dirty:
-            self.cache["tables"] = self._tensor(self.pool.table_array())
-            self._tables_dirty = False
+        allocation changed since the last dispatch; returns whether it
+        pushed."""
+        if not self._tables_dirty:
+            return False
+        self.cache["tables"] = self._tensor(self.pool.table_array())
+        self._tables_dirty = False
+        return True
 
     def _grow_blocks(self, now: float) -> None:
         """Pre-decode growth: every active slot needs the block covering
@@ -400,9 +415,15 @@ class ServeEngine:
         free = [s for s, r in enumerate(self.active) if r is None]
         if not free or not self.waiting:
             return 0
+        tr = TRACER if TRACER.on else None
+        tag = self.trace_tag
+        if tr:
+            tr.open("serve.admit", tag)
         if self.paged:
             reqs, slots = self._take_paged(free)
             if not reqs:
+                if tr:
+                    tr.close((0,))
                 return 0
         else:
             take = min(len(free), len(self.waiting))
@@ -413,19 +434,33 @@ class ServeEngine:
                                 self.cfg.slots, pad_to=self.cfg.pad_to,
                                 max_batch=self.cfg.max_prefill_batch)
         for b in buckets:
+            rids = tuple(reqs[i].rid for i in b.rows)
+            if tr:
+                tr.open("serve.prefill", tag)
+                tr.events("request.admit", tag, rids)
+                tr.open("serve.prefill.enqueue", tag)
             tokens, lens = self._tensor(b.tokens), self._tensor(b.lens)
             if self.paged:
                 self._refresh_tables()
                 logits, rows = self.bundle.prefill_paged(
                     self.params, {"tokens": tokens, "lens": lens})
+                if tr:
+                    tr.lap("serve.prefill.splice")
                 self._splice_paged(rows, b.slot_idx, *self._block_offsets(b))
             else:
                 logits, cache1 = self.bundle.prefill_slotted(
                     self.params, {"tokens": tokens, "lens": lens,
                                   "cache_len": self.cfg.cache_len})
+                if tr:
+                    tr.lap("serve.prefill.splice")
                 self._splice(cache1, b.slot_idx)
             self.prefill_calls += 1
+            if tr:
+                tr.lap("serve.prefill.sync")
             first = torch.argmax(logits, dim=-1).cpu().numpy()
+            if tr:
+                tr.close()
+                tr.events("request.first_token", tag, rids)
             for row, i in enumerate(b.rows):
                 req, slot = reqs[i], slots[i]
                 req.out.append(int(first[row]))
@@ -434,6 +469,11 @@ class ServeEngine:
                 self.active[slot] = req
                 self.last_tok[slot] = first[row]
                 self._maybe_finish(slot, now)
+            if tr:
+                tr.close((len(rids), b.tokens.shape[1],
+                          int(b.lens[:len(rids)].sum()), rids))
+        if tr:
+            tr.close((len(reqs),))
         return len(reqs)
 
     def _finish(self, slot: int, req: ServeRequest, now: float) -> None:
@@ -441,6 +481,10 @@ class ServeEngine:
         paged, its blocks)."""
         req.done = True
         req.t_done = now
+        if TRACER.on:
+            TRACER.event("request.done", self.trace_tag, req.rid,
+                         "oom" if req.oom else
+                         "expired" if req.expired else "")
         if self.paged:
             self._release_blocks(slot, req)
         self.finished.append(req)
@@ -472,6 +516,9 @@ class ServeEngine:
                 req.done = True
                 req.t_done = now
                 self.finished.append(req)
+                if TRACER.on:
+                    TRACER.event("request.done", self.trace_tag, req.rid,
+                                 "expired")
                 n += 1
             else:
                 still.append(req)
@@ -485,23 +532,41 @@ class ServeEngine:
         active_mask = np.array([r is not None for r in self.active])
         if not active_mask.any():
             return 0
+        tr = TRACER if TRACER.on else None
+        if tr:
+            tr.open("serve.step", self.trace_tag)
         decode = self.bundle.decode_slotted
         if self.paged:
             # grow each active slot's table to cover this step's write
             # position; pool exhaustion sheds explicitly (OOM), so the
             # mask may shrink before the dispatch
+            if tr:
+                tr.open("serve.step.grow", self.trace_tag)
             self._grow_blocks(now)
             active_mask = np.array([r is not None for r in self.active])
             if not active_mask.any():
+                if tr:
+                    tr.close()
+                    tr.close((0,))
                 return 0
-            self._refresh_tables()
+            if tr:
+                tr.lap("serve.step.tables")
+            pushed = self._refresh_tables()
+            if tr:
+                tr.lap("serve.step.enqueue", (pushed,))
             decode = self.bundle.decode_paged
+        elif tr:
+            tr.open("serve.step.enqueue", self.trace_tag)
         logits, self.cache = decode(
             self.params, self.cache,
             {"tokens": self._tensor(self.last_tok[:, None]),
              "active": self._tensor(active_mask)})
         self.decode_steps += 1
+        if tr:
+            tr.lap("serve.step.sync")
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        if tr:
+            tr.lap("serve.step.emit")
         produced = 0
         for s, req in enumerate(self.active):
             if req is None:
@@ -510,6 +575,9 @@ class ServeEngine:
             self.last_tok[s] = nxt[s]
             produced += 1
             self._maybe_finish(s, now)
+        if tr:
+            tr.close()
+            tr.close((produced,))
         return produced
 
     # ----------------------------------------------------------------- tick
@@ -523,10 +591,16 @@ class ServeEngine:
         Returns ``{"produced", "admitted", "expired", "stall_s"}``;
         ``stall_s`` is the injected ``serve.decode`` stall the caller adds
         to its virtual clock (``realtime=True`` sleeps it here)."""
+        tr = TRACER if TRACER.on else None
+        if tr:
+            tr.open_tick(self.trace_tag)
+            tr.open("serve.expire", self.trace_tag)
         expired = self._expire(now)
+        if tr:
+            tr.close()
         admitted = self._admit(now)
-        self.peak_concurrency = max(self.peak_concurrency,
-                                    sum(r is not None for r in self.active))
+        rows = sum(r is not None for r in self.active)
+        self.peak_concurrency = max(self.peak_concurrency, rows)
         stall_s = 0.0
         if self.faults is not None:
             # the engine owns no clock: the plan is consulted (check), never
@@ -538,6 +612,8 @@ class ServeEngine:
                 else:
                     stall_s = spec.hang_s
         produced = self.step(now + stall_s)
+        if tr:
+            tr.close_tick((admitted, produced, expired, rows))
         return {"produced": produced, "admitted": admitted,
                 "expired": expired, "stall_s": stall_s}
 
