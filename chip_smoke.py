@@ -2531,7 +2531,8 @@ def drop_accounting(torch, engine, reqs, prefill_field: str, caps=None):
     layers, on the device, read once at the end).  Returns ({rid: pairs
     dropped in the prefill calls that held it}, pairs dropped in decode
     steps, {rid: tokens}); a ``caps`` list gets (prefill?, capacity) of
-    every moe_block call.  The program itself counts nothing."""
+    every moe_block call.  A paged engine's steps run eagerly there, so
+    that each calls the wrapper."""
     import dataclasses
 
     import repro_torch.models.transformer as transformer_mod
@@ -2564,8 +2565,10 @@ def drop_accounting(torch, engine, reqs, prefill_field: str, caps=None):
             return prefill(params, batch)
         finally:
             current["rids"] = None
-    run = ServeEngine(dataclasses.replace(engine.bundle,
-                                          **{prefill_field: recording}),
+    fields = {prefill_field: recording}
+    if engine.paged:     # a replayed graph would not call the wrapper
+        fields["decode_paged"] = engine.bundle.decode_paged.eager
+    run = ServeEngine(dataclasses.replace(engine.bundle, **fields),
                       engine.params, engine.cfg, device=engine.device)
     done = swapped([(transformer_mod, "moe_block", counting)], run.run, reqs)
     per_rid, decode = {r.rid: 0 for r in reqs}, 0

@@ -488,8 +488,37 @@ def attention_decode_slotted(
     return y, k_cache, v_cache
 
 
+def paged_pool(layers: int, n_blocks: int, block_size: int, kv_heads: int,
+               head_dim: int, slots: int, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """A zeroed K or V pool, (layers, n_blocks, block_size, KVH, hd): each
+    layer's first ``n_blocks`` blocks of an allocation that holds
+    ``ceil(slots / block_size)`` spare blocks past them, one position for
+    each slot.  A decode step's masked rows write there
+    (:func:`paged_write_index`); nothing reads them, and the pool does not
+    show them (:func:`pool_with_spare` finds them)."""
+    spare = -(-slots // block_size)
+    full = torch.zeros((layers, n_blocks + spare, block_size, kv_heads,
+                        head_dim), dtype=dtype, device=device)
+    return full[:, :n_blocks]
+
+
+def pool_with_spare(pool: torch.Tensor) -> Optional[torch.Tensor]:
+    """The allocation :func:`paged_pool` cut ``pool`` from, its spare
+    blocks included; None for a pool made otherwise (or a copy)."""
+    full = pool._base
+    if (full is None or full.dim() != pool.dim()
+            or full.shape[0] != pool.shape[0]
+            or full.shape[2:] != pool.shape[2:]
+            or full.stride() != pool.stride()
+            or full.storage_offset() != pool.storage_offset()):
+        return None
+    return full
+
+
 def paged_write_index(lens: torch.Tensor, tables: torch.Tensor,
-                      active: torch.Tensor, block_size: int, n_blocks: int):
+                      active: torch.Tensor, block_size: int, n_blocks: int,
+                      spare: int = 0):
     """Where one decode step's new K/V rows go in the pool: the same for
     every layer, so a step computes it once.
 
@@ -498,14 +527,50 @@ def paged_write_index(lens: torch.Tensor, tables: torch.Tensor,
     ``pos_w % BS``.  Inactive rows must not touch the pool at all: a freed
     block may already belong to another slot.  The reference drops their
     write (and any write to a sentinel block) with ``mode="drop"``; torch
-    has none, so only the rows that are active and hold a real block are
-    kept (one host sync, for ``nonzero``).  Never clamp a sentinel into
-    the pool.  Returns ``(rows, blk, off)``, each ``(n,)`` int64."""
+    has none.  With ``spare`` blocks past the pool's ``n_blocks`` (a pool
+    of :func:`paged_pool`) and a spare position for every row, every row
+    writes, each masked row to its own spare position, block ``n_blocks +
+    b // BS`` at offset ``b % BS``: fixed shapes and no host read, so the
+    step can be captured in a CUDA graph.  Otherwise only the rows that are
+    active and hold a real block are kept (one host sync, for
+    ``nonzero``).  Never clamp a sentinel into the pool, and no two rows
+    write one position.  Returns ``(rows, blk, off)``: ``rows`` a slice of
+    every row, or the (n,) indices kept, and ``blk``, ``off`` (n,) int64."""
     span = tables.shape[1] * block_size
     pos_w = lens.clamp(max=span - 1).long()
     blk = tables.gather(1, (pos_w // block_size)[:, None])[:, 0].long()
-    rows = torch.nonzero(active & (blk < n_blocks)).squeeze(1)
-    return rows, blk[rows], (pos_w % block_size)[rows]
+    off = pos_w % block_size
+    keep = active & (blk < n_blocks)
+    b = lens.shape[0]
+    if spare * block_size >= b:
+        row = torch.arange(b, device=lens.device)
+        return (slice(None),
+                torch.where(keep, blk, n_blocks + row // block_size),
+                torch.where(keep, off, row % block_size))
+    rows = torch.nonzero(keep).squeeze(1)
+    return rows, blk[rows], off[rows]
+
+
+def spare_pools(cache: Dict[str, torch.Tensor]):
+    """(k, v, spare): ``cache``'s pools with their spare blocks and the
+    number of those, or the pools themselves and 0 where either has
+    none."""
+    k, v = cache["k"], cache["v"]
+    kw, vw = pool_with_spare(k), pool_with_spare(v)
+    if kw is None or vw is None:
+        return k, v, 0
+    return kw, vw, min(kw.shape[1], vw.shape[1]) - k.shape[1]
+
+
+def paged_write(cache: Dict[str, torch.Tensor], active: torch.Tensor):
+    """This decode step's :func:`paged_write_index` over ``cache``'s
+    pools, with their spare blocks where they have them, and the stacked
+    tensors it indexes (:func:`spare_pools`): (write, k, v), of which
+    layer ``i`` writes ``k[i]`` and ``v[i]``."""
+    kw, vw, spare = spare_pools(cache)
+    k = cache["k"]
+    return (paged_write_index(cache["lens"], cache["tables"], active,
+                              k.shape[2], k.shape[1], spare), kw, vw)
 
 
 def attention_decode_paged(
@@ -516,6 +581,7 @@ def attention_decode_paged(
     lens: torch.Tensor,             # (B,) int32: per-slot current lengths
     tables: torch.Tensor,           # (B, NB) int32 block tables
     write,                          # paged_write_index(...) of this step
+    dst: Tuple[torch.Tensor, torch.Tensor],  # (k, v) that write indexes
     cfg: ModelConfig,
     use_rope: bool = True,
 ):
@@ -524,7 +590,9 @@ def attention_decode_paged(
     Per-row arithmetic as :func:`attention_decode_slotted`, but K/V live
     in a pool of fixed-size blocks addressed through each slot's block
     table.  The new K/V rows go where ``write`` (from
-    :func:`paged_write_index`) says; attention runs the paged
+    :func:`paged_write_index`) says, in ``dst``: this layer's pools with
+    their spare blocks, or the pools themselves (:func:`paged_write`).
+    Attention runs the paged
     decode-attention kernel over the pool with ``kv_len = lens + 1``.
     Returns (out, k_pool, v_pool); the pools are the inputs, written in
     place.
@@ -534,8 +602,8 @@ def attention_decode_paged(
     if use_rope:
         q, k = _rotate(q, k, _decode_positions(lens, cfg), cfg)
     rows, blk, off = write
-    k_pool.index_put_((blk, off), k[rows, 0])
-    v_pool.index_put_((blk, off), v[rows, 0])
+    dst[0].index_put_((blk, off), k[rows, 0])
+    dst[1].index_put_((blk, off), v[rows, 0])
     out = _paged_decode(q[:, 0], k_pool, v_pool, tables, lens + 1)[:, None]
     y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
     return y, k_pool, v_pool

@@ -44,7 +44,8 @@ from repro_torch.models.attention import (
     attention_prefill,
     attention_specs,
     init_attention,
-    paged_write_index,
+    paged_pool,
+    paged_write,
 )
 from repro_torch.models.common import (
     apply_norm,
@@ -291,10 +292,9 @@ def init_hybrid_paged_cache(cfg: ModelConfig, slots: int, cache_len: int,
                           dtype=torch.int32, device=dev))
     if n_groups:
         kv = (n_groups, n_blocks, block_size, cfg.n_kv_heads,
-              cfg.resolved_head_dim)
-        dt = torch_dtype(cfg.dtype)
-        cache["k"] = torch.zeros(kv, dtype=dt, device=dev)
-        cache["v"] = torch.zeros(kv, dtype=dt, device=dev)
+              cfg.resolved_head_dim, slots, torch_dtype(cfg.dtype), dev)
+        cache["k"] = paged_pool(*kv)
+        cache["v"] = paged_pool(*kv)
     return cache
 
 
@@ -473,13 +473,13 @@ def hybrid_decode_step_paged(params: Dict[str, Any], cache: Dict[str, Any],
     inactive rows never write a pool (where the step writes is computed
     once, for every application)."""
     lens, tables = cache["lens"], cache["tables"]
-    write = None
+    write = k_dst = v_dst = None
     if "k" in cache:
-        write = paged_write_index(lens, tables, active, cache["k"].shape[2],
-                                  cache["k"].shape[1])
+        write, k_dst, v_dst = paged_write(cache, active)
 
     def attend(ap, h, gi):
         return attention_decode_paged(ap, h, cache["k"][gi], cache["v"][gi],
-                                      lens, tables, write, cfg)[0]
+                                      lens, tables, write,
+                                      (k_dst[gi], v_dst[gi]), cfg)[0]
     logits = _decode_layers(params, cache, tokens, cfg, attend)
     return logits, dict(cache, lens=lens + active.to(torch.int32))

@@ -24,7 +24,9 @@ serving path, as the reference's has none.
 * ``prefill_slotted`` / ``decode_slotted`` — per-slot lengths (serving)
 * ``prefill_paged`` / ``decode_paged`` / ``make_paged_cache(slots,
   cache_len, n_blocks, block_size, device)`` / ``paged_cache_specs`` — the
-  paged KV cache (a block pool shared by every slot)
+  paged KV cache (a block pool shared by every slot); the LM families'
+  ``decode_paged`` replays its step as a CUDA graph on one card
+  (``models/decode_graph.py``), and its ``eager`` is the step itself
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.models import encdec as M_encdec
 from repro_torch.models import hybrid as M_hybrid
 from repro_torch.models import transformer as M_lm
+from repro_torch.models.decode_graph import DecodeGraphs
 
 
 @dataclasses.dataclass
@@ -193,7 +196,7 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
             cfg, b, s, device=device),
         prefill_pads=True,
         prefill_paged=prefill_paged,
-        decode_paged=decode_paged,
+        decode_paged=DecodeGraphs(decode_paged),
         make_paged_cache=make_paged_cache,
         paged_cache_specs=lambda: M_lm.paged_cache_specs(cfg),
     )

@@ -44,7 +44,8 @@ from repro_torch.models.attention import (
     attention_prefill,
     attention_specs,
     init_attention,
-    paged_write_index,
+    paged_pool,
+    paged_write,
 )
 from repro_torch.models.common import (
     apply_norm,
@@ -440,19 +441,21 @@ def init_paged_cache(cfg: ModelConfig, slots: int, cache_len: int,
     slot, plus per-slot block tables.
 
     ``k``/``v``: (layers, n_blocks, block_size, KVH, hd) pools, zeroed so
-    unwritten positions hold finite values, and written in place by decode;
-    ``tables``: (slots, cache_len // block_size) int32, the sentinel
-    ``n_blocks`` marking unallocated entries; ``lens``: per-slot lengths."""
+    unwritten positions hold finite values, and written in place by decode
+    (each with spare blocks past it that inactive rows write:
+    :func:`~repro_torch.models.attention.paged_pool`); ``tables``: (slots,
+    cache_len // block_size) int32, the sentinel ``n_blocks`` marking
+    unallocated entries; ``lens``: per-slot lengths."""
     if cache_len % block_size:
         raise ValueError(f"cache_len {cache_len} is not a multiple of "
                          f"block_size {block_size}")
     dtype = dtype or torch_dtype(cfg.dtype)
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+             cfg.resolved_head_dim, slots, dtype, dev)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "k": paged_pool(*shape),
+        "v": paged_pool(*shape),
         "lens": torch.zeros((slots,), dtype=torch.int32, device=dev),
         "tables": torch.full((slots, cache_len // block_size), n_blocks,
                              dtype=torch.int32, device=dev),
@@ -486,17 +489,19 @@ def lm_decode_step_paged(params: Dict[str, Any], cache: Dict[str, Any],
     :func:`lm_decode_step_slotted`, but K/V go through each slot's block
     table, and inactive rows never write the pool (their blocks may have
     been reassigned).  Where the step writes is the same for every layer
-    and computed once.  Layer ``i``'s pools are ``cache["k"][i]``, a
-    contiguous slice, written in place."""
+    and computed once; with the pools' spare blocks (a cache of
+    :func:`init_paged_cache`) it has fixed shapes and reads nothing back
+    to the host, so the step can be captured in a CUDA graph
+    (``models/decode_graph.py``).  Layer ``i``'s pools are
+    ``cache["k"][i]``, a contiguous slice, written in place."""
     check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
     lens, tables = cache["lens"], cache["tables"]
-    write = paged_write_index(lens, tables, active, cache["k"].shape[2],
-                              cache["k"].shape[1])
+    write, k_dst, v_dst = paged_write(cache, active)
     for i, lp in enumerate(params["layers"]):
         a, _, _ = attention_decode_paged(
             lp["attn"], _attn_in(lp, x, cfg), cache["k"][i], cache["v"][i],
-            lens, tables, write, cfg)
+            lens, tables, write, (k_dst[i], v_dst[i]), cfg)
         x = _mlp_residual(lp, x + a, cfg)
     x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, x, cfg)[:, 0]

@@ -47,6 +47,13 @@ The engine records (``serve/engine.py``):
     the tables were copied to the device), ``.enqueue`` (the bundle's
     decode call), ``.sync`` (the argmax and its copy to the host) and
     ``.emit`` (the loop over the slots).
+``model.decode.graph``
+    one per call of the LM bundle's ``decode_paged``
+    (``models/decode_graph.py``), under ``serve.step.enqueue``, recorded
+    when the call returns (:meth:`Tracer.record`, so that the MoE entries
+    the call makes keep ``serve.step.enqueue`` as their parent); attrs
+    ``(mode, captures so far)``, mode ``replay``, ``capture`` (the eager
+    step, then its capture) or ``eager``.
 ``request.*``
     ``submit``, ``admit``, ``first_token`` and ``done``, events with the
     request's rid: ``admit`` at the start of its prefill bucket,
@@ -71,6 +78,7 @@ span ring holds the last 8 minutes and the MoE ring the last 4.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import time
 from collections import defaultdict
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
@@ -128,6 +136,7 @@ class Tracer:
         self._moe_parent = [0] * moe_capacity
         self._moe_mask = moe_capacity - 1
         self.n_moe = 0
+        self._held: Optional[list] = None   # MoE entries of a capture
         self._engines = 0
         self._snap: Optional[Snapshot] = None
 
@@ -171,6 +180,22 @@ class Tracer:
         self._ring[j & self._mask] = None
         st.append((j, name, engine, t))
 
+    def now(self) -> int:
+        """A reading of the clock spans are timed by."""
+        return self._clock()
+
+    def record(self, name: str, t0: int, attrs: tuple = ()) -> None:
+        """A span ``name`` from ``t0`` (:meth:`now`) to now, made closed
+        inside the innermost open span, with its engine tag (0 where none
+        is open): a call timed around, whose own records keep the open span
+        as their parent."""
+        t1 = self._clock()
+        i = self.n
+        self.n = i + 1
+        st = self._stack
+        self._ring[i & self._mask] = (name, t0, t1, st[-1][0] if st else -1,
+                                      st[-1][2] if st else 0, attrs)
+
     def open_tick(self, engine: int) -> None:
         """Open ``serve.tick``, a root: spans left open by an exception in
         an earlier tick are dropped."""
@@ -196,6 +221,9 @@ class Tracer:
 
     def moe(self, counts, cap: int, tokens: int) -> None:
         """Keep a reference to one MoE call's per-expert pair counts."""
+        if self._held is not None:
+            self._held.append((counts, cap, tokens))
+            return
         j = self.n_moe
         self.n_moe = j + 1
         j &= self._moe_mask
@@ -204,6 +232,19 @@ class Tracer:
         self._moe_tokens[j] = tokens
         st = self._stack
         self._moe_parent[j] = st[-1][0] if st else -1
+
+    @contextlib.contextmanager
+    def holding_moe(self):
+        """Within the block, on or off, every MoE call hands its entry
+        ``(counts, cap, tokens)`` to the list this yields and not to the
+        ring: a CUDA graph's capture, whose counts tensors each replay
+        overwrites, so that its runner stashes a copy a replay."""
+        held, on = [], self.on
+        self._held, self.on = held, True
+        try:
+            yield held
+        finally:
+            self._held, self.on = None, on
 
     # ---- reading ----------------------------------------------------------
     def snapshot(self) -> "Snapshot":

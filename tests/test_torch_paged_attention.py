@@ -30,7 +30,11 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
-from repro_torch.models.attention import paged_write_index
+from repro_torch.models.attention import (
+    paged_pool,
+    paged_write_index,
+    pool_with_spare,
+)
 from repro_torch.models.transformer import (
     init_paged_cache,
     lm_decode_step_paged,
@@ -265,3 +269,51 @@ def test_write_index_drops_inactive_rows_and_sentinel_blocks():
     rows, blk, off = paged_write_index(lens, tables, active, bs, n_blocks)
     assert rows.tolist() == [0, 2]          # row 1 hits a sentinel block
     assert blk.tolist() == [7, 5] and off.tolist() == [1, 3]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_write_index_with_spare_blocks_writes_what_nonzero_selects(seed):
+    """The fixed-shape write (every row writes, the masked ones to their
+    own spare positions) leaves the pool as the ``nonzero`` selection's
+    write does, bit for bit: random lengths (some past the span, which
+    clamp to its last position), tables with sentinels, inactive rows.
+    No masked row reaches a block of the pool, and no two rows write one
+    position."""
+    rng = np.random.default_rng(seed)
+    slots, nb, bs, n_blocks = 7, 4, 4, 18
+    tables = np.full((slots, nb), n_blocks, np.int32)
+    perm = rng.permutation(n_blocks)
+    for s in range(4):                 # slots 4-6 hold no block at all
+        n = rng.integers(1, nb + 1)
+        tables[s, :n] = perm[nb * s:nb * s + n]
+    lens = torch.from_numpy(rng.integers(0, nb * bs + 5, slots)
+                            .astype(np.int32))
+    lens[0] = nb * bs + 3              # the clamp at NB*BS - 1
+    active = torch.from_numpy(rng.random(slots) < 0.7)
+    tables = torch.from_numpy(tables)
+    pool = paged_pool(1, n_blocks, bs, 2, 3, slots, torch.float32, "cpu")
+    full = pool_with_spare(pool)
+    assert full.shape[1] == n_blocks + 2 and pool.shape[1] == n_blocks
+    old = torch.from_numpy(rng.normal(size=tuple(full.shape))
+                           .astype(np.float32))
+    full.copy_(old)
+    new = torch.from_numpy(rng.normal(size=(slots, 2, 3)).astype(np.float32))
+
+    rows, blk, off = paged_write_index(lens, tables, active, bs, n_blocks,
+                                       spare=full.shape[1] - n_blocks)
+    assert rows == slice(None) and blk.shape == off.shape == (slots,)
+    full[0].index_put_((blk, off), new[rows])
+    want = old[0, :n_blocks].clone()
+    rows0, blk0, off0 = paged_write_index(lens, tables, active, bs, n_blocks)
+    want.index_put_((blk0, off0), new[rows0])
+    assert torch.equal(pool[0], want)
+
+    kept = blk < n_blocks
+    assert torch.equal(kept.nonzero().squeeze(1), rows0)
+    assert not (kept & ~active).any()
+    flat = blk * bs + off
+    assert len(set(flat.tolist())) == slots
+    for b in range(slots):
+        if not kept[b]:                # a spare position, its own
+            assert (int(blk[b]), int(off[b])) == (n_blocks + b // bs,
+                                                  b % bs)

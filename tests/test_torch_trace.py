@@ -33,6 +33,7 @@ PARENT = {
     "serve.step.grow": "serve.step", "serve.step.tables": "serve.step",
     "serve.step.enqueue": "serve.step", "serve.step.sync": "serve.step",
     "serve.step.emit": "serve.step",
+    "model.decode.graph": "serve.step.enqueue",
 }
 STEP = ["serve.step.grow", "serve.step.tables", "serve.step.enqueue",
         "serve.step.sync", "serve.step.emit"]

@@ -28,6 +28,8 @@ repository root on the GPU machine:
    * the host's time to first token (``request.first_token`` less
      ``request.submit``) at p50 and p95, beside the client's;
    * the experts a decode step's MoE call reaches, and its drops;
+   * the bundle's decode calls by how they ran (``model.decode.graph``:
+     ``replay``, ``capture`` or ``eager``), in the run and in the window;
    * records made a decode tick, and the outcomes of ``request.done``.
 
 ``--dump PATH`` writes the traced part's sync spans and DtoH copies, on
@@ -270,6 +272,13 @@ def host_readings(np, snap, a: int, b: int, rec, L) -> dict:
     out["client_ttft_ms"] = {
         "p50": 1e3 * L.percentile(L.ttfts_s(rec), 50),
         "p95": 1e3 * L.percentile(L.ttfts_s(rec), 95)}
+    for key, spans in (("decode_graph_calls", snap.named(
+            "model.decode.graph")), ("decode_graph_calls_in_window",
+                                     snap.between("model.decode.graph", a,
+                                                  b))):
+        out[key] = {}
+        for s in spans:
+            out[key][s.attrs[0]] = out[key].get(s.attrs[0], 0) + 1
     notes = {}
     for e in snap.named("request.done"):
         notes[e.note or "completed"] = notes.get(e.note or "completed", 0) + 1
