@@ -29,7 +29,7 @@ from repro_torch.models import decode_graph as DG
 from repro_torch.models.registry import build_model
 from repro_torch.serve import EngineConfig, ServeEngine, ServeRequest
 
-ARCHS = ["dbrx-132b", "qwen3-4b"]
+ARCHS = ["dbrx-132b", "qwen3-4b", "mistral-large-123b"]
 # (prompt length, max_new) over 3 slots with blocks of 8: rows cross block
 # boundaries, finish at different steps and free their slots mid-run
 BURST = [(5, 9), (13, 4), (8, 12), (3, 6), (17, 5), (9, 10), (6, 3)]
