@@ -56,6 +56,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ones (C 1, 3, 17; D 100; F 72), f32 and bf16, each call on the path its
    shape picks (gmm_path), timed beside the plain version, torch.bmm and
    its bound, with its TFLOP/s;
+3f. the glue kernels (csrc/glue.cu) likewise, at mistral-large-123b's and
+   dbrx-132b's widths (GLUE_WIDTHS): the residual add and RMSNorm at the
+   decode step's 64 rows and prefill buckets up to 8 x 1024 (h bit for
+   bit, the norm within one bf16 ulp of common.rmsnorm), RoPE at those
+   buckets from positions up to 2047 and RoPE with the paged pool write at
+   64 rows (rows not kept writing their spare positions; q and both whole
+   pools bit for bit against apply_rope and index_put_), SwiGLU at the
+   dense rows and dbrx-132b's expert buffers (bit for bit against
+   F.silu(g) * u), each timed beside PyTorch's ops and its bytes bound.
+   Every engine run of phases 4, 5, 10, 12 and 19 gates the glue kernels'
+   launches (per forward a norm, an add and norm, RoPE and SwiGLU a layer
+   and the final norm; RoPE writing the pool in each paged decode step:
+   check_glue), and the logits gates' plain side runs PyTorch's glue;
 4. qwen3-4b at its published widths (bf16, random weights from a seed) is
    served: first through the launcher (repro_torch.launch.serve.main), then
    through a ServeEngine with 8 slots and a 1024-token cache answering 16
@@ -447,6 +460,15 @@ FLASH_LENGTHS = (8, 40, 704, 2048)
 # 245 GB.  Each runs in a process of its own (``--phase-19 ARCH OUT``), so
 # that it starts on an empty allocator.
 DENSE_LAYERS = {"granite-34b": 55, "mistral-large-123b": 21}
+# The glue kernels' served shapes (phase 3f): (name, d_model, H, KVH, hd,
+# d_ff, rope_theta) of the benchmark's two models; prefill buckets (B, L);
+# the decode step's rows; dbrx-132b's expert buffers (E, C, d_ff) at a
+# decode step's and a 1,024-token prefill's capacity
+GLUE_WIDTHS = [("mistral-large-123b", 12288, 96, 8, 128, 28672, 1e6),
+               ("dbrx-132b", 6144, 48, 8, 128, 10752, 5e5)]
+GLUE_BUCKETS = [(1, 8), (4, 264), (8, 1024)]
+GLUE_DECODE_ROWS = 64
+GLUE_EXPERT_BUFFERS = [(16, 20, 10752), (16, 320, 10752)]
 # Phase 19's engines take the first 8 of phase 4's 16 requests (prompts of
 # 32-521 tokens; its prefill gate still takes the burst's longest, 700).
 # With all 16 the two children took 186.9 s on an NVIDIA H100 80GB HBM3
@@ -843,6 +865,7 @@ def _wrappers() -> dict:
         paged_decode_attention,
     )
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.glue import add_rmsnorm, rope, swiglu
     from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.ssd import ssd_scan
     return {"decode_attention": decode_attention,
@@ -850,7 +873,10 @@ def _wrappers() -> dict:
             "dwsep_conv1d": dwsep_conv1d,
             "flash_attention": flash_attention,
             "ssd_scan": ssd_scan,
-            "moe_gmm": gmm}
+            "moe_gmm": gmm,
+            "glue_add_rmsnorm": add_rmsnorm,
+            "glue_rope": rope,
+            "glue_swiglu": swiglu}
 
 
 def reset_counts() -> None:
@@ -881,6 +907,34 @@ def check_launches(counts: dict, want: dict) -> None:
         raise RuntimeError("kernel launches (got, want): " + ", ".join(
             f"{name} launched {got} times, want {n}"
             for name, (got, n) in bad.items()))
+
+
+def check_glue(torch, tag, cfg, device, counts, stats, apps: int,
+               paged: bool, final: bool = True) -> dict:
+    """Raise unless the glue kernels (``models/glue.py``) launched as an
+    engine run of ``stats`` must: per forward, ``apps`` attention layers of
+    a norm, an add and norm, RoPE and SwiGLU each (a shared expert's
+    SwiGLU too), and the final norm where ``final``; RoPE writing the pool
+    in every paged decode step and rotating in every other call.  None of
+    them where the model's sites run PyTorch's ops (``glue.fused`` on a
+    tensor of the model's dtype on ``device``; the CPU).  Returns the
+    wanted counts."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.models import glue
+    calls = stats["prefill_calls"] + stats["decode_steps"]
+    on = glue.fused(cfg, torch.empty(0, dtype=torch_dtype(cfg.dtype),
+                                     device=device))
+    swiglu = (1 + bool(cfg.n_shared_experts)) * (cfg.act == "swiglu")
+    want = {"glue_add_rmsnorm": on * calls * (2 * apps + final),
+            "glue_rope": on * calls * apps,
+            "glue_swiglu": on * calls * apps * swiglu}
+    check_launches(counts, want)
+    writes = on * paged * stats["decode_steps"] * apps
+    paths = read_paths("glue_rope")
+    if paths != {"rotate": want["glue_rope"] - writes, "write": writes}:
+        raise RuntimeError(f"{tag} glue_rope launches by path {paths}, "
+                           f"want {writes} pool writes, the rest rotations")
+    return want
 
 
 def split_run(torch, engine, bundle_fields, reqs) -> dict:
@@ -1039,6 +1093,8 @@ def phase_serve(torch, device: str = "cuda", reduced: bool = False):
         "decode_attention": stats["decode_steps"] * cfg.n_layers,
         "paged_decode_attention": 0,
         "flash_attention": stats["prefill_calls"] * cfg.n_layers})
+    check_glue(torch, "[serve]", cfg, device, counts, stats, cfg.n_layers,
+               paged=False)
     tokens = sum(len(r.out) for r in done)
 
     split = split_run(torch, engine, {"prefill_slotted": "prefill",
@@ -1179,6 +1235,8 @@ def phase_paged_serve(torch, model, dense_tokens, device: str = "cuda",
         "paged_decode_attention": stats["decode_steps"] * cfg.n_layers,
         "decode_attention": 0,
         "flash_attention": stats["prefill_calls"] * cfg.n_layers})
+    check_glue(torch, "[paged]", cfg, device, counts, stats, cfg.n_layers,
+               paged=True)
     same = sum(r.out == dense_tokens[r.rid] for r in done)
     if same != len(done):
         raise RuntimeError(f"paged engine tokens equal the dense engine's "
@@ -2009,8 +2067,11 @@ def swapped(mods_and_fns, fn, *args):
 
 
 def plain_swaps():
-    """Every kernel on the hybrid path, swapped for its plain version."""
+    """Every kernel on the hybrid and LM paths, swapped for its plain
+    version; the glue's for PyTorch's ops (its path chosen on no
+    device)."""
     import repro_torch.models.attention as attention_mod
+    import repro_torch.models.glue as glue_mod
     import repro_torch.models.mamba2 as mamba2_mod
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref,
@@ -2022,21 +2083,24 @@ def plain_swaps():
             (attention_mod, "flash_attention", flash_attention_ref),
             (attention_mod, "decode_attention", decode_attention_ref),
             (attention_mod, "paged_decode_attention",
-             paged_decode_attention_ref)]
+             paged_decode_attention_ref),
+            (glue_mod, "DEVICE", None)]
 
 
 def with_streams(swaps: list) -> tuple:
     """``swaps`` (for ``swapped``) plus a recorder of the residual stream
-    after each transformer layer (transformer._mlp_residual's output);
-    returns (the swaps, the list the recorder fills)."""
+    after each transformer layer (the sum transformer._boundary makes of a
+    layer's residual and feed-forward output); returns (the swaps, the list
+    the recorder fills)."""
     import repro_torch.models.transformer as transformer_mod
-    inner, out = transformer_mod._mlp_residual, []
+    inner, out = transformer_mod._boundary, []
 
-    def record(*args):
-        x = inner(*args)
-        out.append(x)
-        return x
-    return swaps + [(transformer_mod, "_mlp_residual", record)], out
+    def record(x, y, *args, **kw):
+        h, hn = inner(x, y, *args, **kw)
+        if y is not None:
+            out.append(h)
+        return h, hn
+    return swaps + [(transformer_mod, "_boundary", record)], out
 
 
 def drift_line(a: list, b: list, rows=None) -> tuple:
@@ -2234,6 +2298,8 @@ def phase_hybrid(torch, device: str = "cuda", reduced: bool = False,
             "ssd_scan": stats["prefill_calls"] * cfg.n_layers,
             "flash_attention": stats["prefill_calls"] * n_groups,
             decode: stats["decode_steps"] * n_groups, other: 0})
+        check_glue(torch, tag, cfg, device, counts, stats, n_groups, paged,
+                   final=False)
         check_ssd_paths(tag, ssd_paths, ssd_want,
                         stats["prefill_calls"] * cfg.n_layers)
         tokens = {r.rid: r.out for r in done}
@@ -2740,6 +2806,7 @@ def phase_moe(torch, device: str = "cuda", reduced: bool = False,
             "moe_gmm": 3 * n * calls,
             "flash_attention": stats["prefill_calls"] * n,
             decode: stats["decode_steps"] * n, other: 0})
+        check_glue(torch, tag, cfg, device, counts, stats, n, paged)
         check_gmm_paths(tag, gmm_paths, caps, n, stats)
         tokens = {r.rid: r.out for r in done}
         repeat = sum(first[rid] == tokens[rid] for rid in tokens)
@@ -5069,6 +5136,7 @@ def phase_dense_arch(torch, device: str = "cuda", reduced: bool = False,
         check_launches(counts, {
             decode: stats["decode_steps"] * n, other: 0,
             "flash_attention": stats["prefill_calls"] * n})
+        check_glue(torch, tag, cfg, device, counts, stats, n, paged)
         tokens[kind] = {r.rid: r.out for r in done}
         if paged:
             same = sum(tokens[kind][rid] == tokens["dense"][rid]
@@ -5353,6 +5421,156 @@ def tensor_core_report(build) -> None:
                                f"(found {sorted(seen)} of {list(kinds)})")
 
 
+def within_one_ulp(torch, y, ref) -> bool:
+    """Every element of bf16 ``y`` at most one bf16 ulp from ``ref``."""
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    return bool(((y.float() - r).abs() <= ulp).all())
+
+
+def glue_case(torch, tag, fn, plain, sets, nbytes: int, same) -> dict:
+    """One glue kernel case: ``fn`` against ``plain`` (PyTorch's ops) on
+    ``sets[0]``, which ``same(out, plain_out)`` must accept; then both
+    timed over ``sets`` (time_ms) beside the bound of ``nbytes`` moved
+    once at HBM speed.  Raises where ``same`` refuses."""
+    out, want = fn(*sets[0]), plain(*sets[0])
+    torch.cuda.synchronize()
+    if not same(out, want):
+        raise RuntimeError(f"{tag}: kernel and PyTorch's ops differ")
+    r = dict(ms=time_ms(fn, sets), plain_ms=time_ms(plain, sets),
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    log(f"{tag}: equal to PyTorch's ops; ms={r['ms']:.4f} plain_ms="
+        f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} (bytes; "
+        f"{ratios(r['ms'], bound=r['bound_ms'], plain=r['plain_ms'])})")
+    return dict(case=tag, **r)
+
+
+def phase_glue_kernels(torch, device: str = "cuda", widths=GLUE_WIDTHS,
+                       buckets=GLUE_BUCKETS, rows=GLUE_DECODE_ROWS,
+                       experts=GLUE_EXPERT_BUFFERS) -> list:
+    """Each glue kernel (``csrc/glue.cu``) against the PyTorch ops it
+    replaces at the served shapes: the add and RMSNorm (h bit for bit, the
+    norm within one bf16 ulp of ``common.rmsnorm``), RoPE at prefill
+    buckets from positions up to 2047, RoPE with the pool write at the
+    decode step's rows (rows not kept writing their spare positions; the
+    whole pools bit for bit against ``apply_rope`` and ``index_put_``) and
+    SwiGLU (bit for bit against ``F.silu(g) * u``), each timed beside
+    PyTorch's ops and its bytes bound.  Returns the cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import glue as ops
+    from repro_torch.models import glue
+    from repro_torch.models.attention import paged_write_index
+    from repro_torch.models.common import apply_rope, rmsnorm
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    def n_sets(per: int) -> int:      # enough copies to miss in L2
+        return min(16, max(2, -(-200_000_000 // per)))
+    def add_norm_plain(x, a, scale, eps):
+        h = x + a
+        return h, rmsnorm(h, scale, eps)
+    eps, cases = 1e-5, []
+    for name, d, h, kvh, hd, d_ff, theta in widths:
+        freqs = glue._freqs(hd, theta, torch.device(device))
+        for b, s in [(rows, 1)] + list(buckets):
+            per = 4 * b * s * d * 2
+            sets = [(bf16(b, s, d), bf16(b, s, d, scale=0.5),
+                     (1 + 0.1 * torch.randn(d, generator=gen,
+                                            device=device)).to(
+                         torch.bfloat16), eps)
+                    for _ in range(n_sets(per))]
+            cases.append(glue_case(
+                torch, f"[glue] {name} add_rmsnorm {b}x{s}x{d}",
+                ops.add_rmsnorm, add_norm_plain, sets, per,
+                lambda o, w: torch.equal(o[0], w[0])
+                and within_one_ulp(torch, o[1], w[1])))
+            cases.append(glue_case(
+                torch, f"[glue] {name} rmsnorm {b}x{s}x{d}",
+                lambda x, sc, e: ops.add_rmsnorm(x, None, sc, e)[1],
+                rmsnorm, [(x, sc, e) for x, _, sc, e in sets], per // 2,
+                lambda o, w: within_one_ulp(torch, o, w)))
+            del sets
+        for b, s in buckets:
+            per = 2 * b * s * (h + kvh) * hd * 2
+            sets = []
+            for _ in range(n_sets(per)):
+                start = torch.randint(0, 2048 - s, (b, 1), generator=gen,
+                                      device=device)
+                sets.append((bf16(b, s, h, hd, scale=4.0),
+                             bf16(b, s, kvh, hd, scale=4.0),
+                             start + torch.arange(s, device=device)))
+            cases.append(glue_case(
+                torch, f"[glue] {name} rope B={b} L={s} {h}/{kvh}x{hd}",
+                lambda q, k, pos: ops.rope(q, k, pos, freqs),
+                lambda q, k, pos: (apply_rope(q, pos, theta),
+                                   apply_rope(k, pos, theta)),
+                sets, per, lambda o, w: torch.equal(o[0], w[0])
+                and torch.equal(o[1], w[1])))
+            del sets
+        # the decode step: 64 rows to position 2047, ~60% active, the
+        # others writing their spare positions (paged_write_index)
+        bs, nb = 16, 2048 // 16
+        n_blocks, spare = rows * nb, -(-rows // bs)
+        lens = torch.randint(0, 2048, (rows,), generator=gen, device=device,
+                             dtype=torch.int32)
+        lens[:4] = torch.tensor([0, 15, 16, 2047])
+        tables = torch.randperm(n_blocks, generator=gen, device=device).view(
+            rows, nb).to(torch.int32)
+        active = torch.rand(rows, generator=gen, device=device) < 0.6
+        sel, blk, off = paged_write_index(lens, tables, active, bs, n_blocks,
+                                          spare)
+        pools = [bf16(n_blocks + spare, bs, kvh, hd) for _ in range(2)]
+        want = [t.clone() for t in pools]
+        q, k, v = (bf16(rows, 1, h, hd, scale=4.0),
+                   bf16(rows, 1, kvh, hd, scale=4.0), bf16(rows, 1, kvh, hd))
+
+        def write_plain(q, k, v, kv_lens, kp, vp):
+            pos = (kv_lens - 1)[:, None]
+            kp.index_put_((blk, off), apply_rope(k, pos, theta)[sel, 0])
+            vp.index_put_((blk, off), v[sel, 0])
+            return apply_rope(q, pos, theta)
+
+        def write_fused(q, k, v, kv_lens, kp, vp):
+            return ops.rope_write(q, k, v, kv_lens, freqs, kp, vp, blk, off)
+        qr = write_fused(q, k, v, lens + 1, *pools)
+        qw = write_plain(q, k, v, lens + 1, *want)
+        torch.cuda.synchronize()
+        if not (torch.equal(qr, qw) and torch.equal(pools[0], want[0])
+                and torch.equal(pools[1], want[1])):
+            raise RuntimeError(f"[glue] {name} rope_write: rotated q or the "
+                               f"pools differ from PyTorch's ops")
+        per = rows * (2 * h + 4 * kvh) * hd * 2
+        r = dict(ms=time_ms(write_fused, [(q, k, v, lens + 1, *pools)]),
+                 plain_ms=time_ms(write_plain, [(q, k, v, lens + 1, *want)]),
+                 bound_ms=per / HBM_BYTES_PER_S * 1e3)
+        tag = f"[glue] {name} rope_write {rows} rows {h}/{kvh}x{hd}"
+        log(f"{tag}: rotated q and both pools ({n_blocks + spare} blocks) "
+            f"equal to PyTorch's ops, {int(active.sum())} rows kept; ms="
+            f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+            f"{r['bound_ms']:.4f} (bytes; "
+            f"{ratios(r['ms'], bound=r['bound_ms'], plain=r['plain_ms'])})")
+        cases.append(dict(case=tag, **r))
+        del pools, want
+        shapes = [(rows, 1, d_ff)] + [(b, s, d_ff) for b, s in buckets]
+        if name == "dbrx-132b":
+            shapes = experts
+        for shape in shapes:
+            per = 3 * math.prod(shape) * 2
+            sets = [(bf16(*shape, scale=4.0), bf16(*shape))
+                    for _ in range(n_sets(per))]
+            cases.append(glue_case(
+                torch, f"[glue] {name} swiglu {'x'.join(map(str, shape))}",
+                ops.swiglu, lambda g, u: F.silu(g) * u, sets, per,
+                torch.equal))
+            del sets
+        torch.cuda.empty_cache()
+    return cases
+
+
 def kernel_report(build, name: str, mma: bool, note: str = "") -> None:
     """Phase 2's check of one library's instantiations: their registers and
     spills from ``-Xptxas -v`` (none may spill) and, where ``mma``, the
@@ -5449,6 +5667,7 @@ def main() -> int:
     decode_report(_build, _build.load("decode_attention"))
     kernel_report(_build, "ssd", mma=True)
     kernel_report(_build, "dwsep_conv1d", mma=False)
+    kernel_report(_build, "glue", mma=False)
     t_total = time.perf_counter()
 
     phase_kernels(torch, decode_attention, decode_attention_ref)
@@ -5457,6 +5676,7 @@ def main() -> int:
     flash_full = phase_flash_full_kernels(torch)
     phase_ssd_kernels(torch)
     phase_gmm_kernels(torch)
+    glue_cases = phase_glue_kernels(torch)
     launches, path, served = phase_serve(torch)
     paged_launches, paged_path = phase_paged_serve(torch, served["model"],
                                                    served["tokens"])
@@ -5662,6 +5882,15 @@ def main() -> int:
             f"{arch} ({r['layers']} layers) tok/s dense "
             f"{r['dense']['tok_s']:.1f}, paged {r['paged']['tok_s']:.1f}"
             for arch, r in dense.items()))
+    kernels.append({
+        "name": "glue",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/glue.cu",
+        "replaces": "none: XLA fuses a layer's norms, RoPE and SwiGLU into "
+                    "the products around them",
+        "cases": glue_cases,
+        "library": "plain_ms: the PyTorch ops each kernel replaces (phase "
+                   "3f)"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -50,12 +50,14 @@ from repro_torch.kernels.decode_attention.ops import (
     paged_decode_attention,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import glue
 from repro_torch.models.common import (
     apply_mrope,
     apply_rope,
     dense_init,
     rmsnorm,
 )
+from repro_torch.models.glue import grad_taken as _grad_taken
 
 NEG_INF = -1e30
 
@@ -243,8 +245,14 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     return _project_q(p, x, cfg), k, v
 
 
-def _rotate(q, k, positions: torch.Tensor, cfg: ModelConfig):
-    """RoPE at (B, S) positions, or M-RoPE at (3, B, S) ones."""
+def _rotate(q, k, positions: Optional[torch.Tensor], cfg: ModelConfig):
+    """RoPE at (B, S) positions (0..S-1 where None), or M-RoPE at (3, B,
+    S) ones: a glue site (``models/glue.py``)."""
+    if glue.fused(cfg, q, k):
+        return glue.rope(q, k, positions, cfg)
+    glue.site("torch")
+    if positions is None:
+        positions = _arange_positions(q.shape[0], q.shape[1], q.device)
     axes = ("batch", "seq") if positions.dim() == 2 else (None, "batch",
                                                           "seq")
     positions = replicated_like(positions, q, axes)
@@ -268,10 +276,6 @@ def _decode_positions(at: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.mrope:
         return at[None, :, None].expand(3, -1, 1)
     return at[:, None]
-
-
-def _grad_taken(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _rank_heads(q_pl, mesh, h: int, kvh: int, dim: int):
@@ -334,8 +338,6 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
-        if positions is None:
-            positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
     out = _attend(q, k, v, cfg, causal)
     return out.reshape(b, s, -1) @ p["o"].to(x.dtype)
@@ -422,8 +424,6 @@ def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
-        if positions is None:
-            positions = _arange_positions(b, s, x.device)
         q, k = _rotate(q, k, positions, cfg)
     out = _attend(q, k, v, cfg, causal=True)
     kc, vc = _pad_rows(k, cache_len - s), _pad_rows(v, cache_len - s)
@@ -578,7 +578,7 @@ def attention_decode_paged(
     x: torch.Tensor,                # (B, 1, D)
     k_pool: torch.Tensor,           # (P, BS, KVH, hd), updated in place
     v_pool: torch.Tensor,
-    lens: torch.Tensor,             # (B,) int32: per-slot current lengths
+    kv_lens: torch.Tensor,          # (B,) int32: per-slot lengths + 1
     tables: torch.Tensor,           # (B, NB) int32 block tables
     write,                          # paged_write_index(...) of this step
     dst: Tuple[torch.Tensor, torch.Tensor],  # (k, v) that write indexes
@@ -593,17 +593,21 @@ def attention_decode_paged(
     :func:`paged_write_index`) says, in ``dst``: this layer's pools with
     their spare blocks, or the pools themselves (:func:`paged_write`).
     Attention runs the paged
-    decode-attention kernel over the pool with ``kv_len = lens + 1``.
-    Returns (out, k_pool, v_pool); the pools are the inputs, written in
-    place.
+    decode-attention kernel over the pool with ``kv_lens``, the slots'
+    lengths with this step's token, made once a step for every layer; the
+    token's position is ``kv_lens - 1``.  Returns (out, k_pool, v_pool);
+    the pools are the inputs, written in place.
     """
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
-    if use_rope:
-        q, k = _rotate(q, k, _decode_positions(lens, cfg), cfg)
-    rows, blk, off = write
-    dst[0].index_put_((blk, off), k[rows, 0])
-    dst[1].index_put_((blk, off), v[rows, 0])
-    out = _paged_decode(q[:, 0], k_pool, v_pool, tables, lens + 1)[:, None]
+    if use_rope and glue.fused(cfg, q, k, v):
+        q = glue.rope_write(q, k, v, kv_lens, write, dst, cfg)
+    else:
+        if use_rope:
+            q, k = _rotate(q, k, _decode_positions(kv_lens - 1, cfg), cfg)
+        rows, blk, off = write
+        dst[0].index_put_((blk, off), k[rows, 0])
+        dst[1].index_put_((blk, off), v[rows, 0])
+    out = _paged_decode(q[:, 0], k_pool, v_pool, tables, kv_lens)[:, None]
     y = out.reshape(b, 1, -1) @ p["o"].to(x.dtype)
     return y, k_pool, v_pool

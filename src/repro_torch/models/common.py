@@ -87,8 +87,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) int. Half-split, not interleaved:
     the first half of ``hd`` rotates against the second half."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
+    return rope_at(x, positions, rope_freqs(x.shape[-1], theta,
+                                            device=x.device))
+
+
+def rope_at(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor
+            ) -> torch.Tensor:
+    """:func:`apply_rope` by the frequencies ``freqs`` (hd/2,) f32 that
+    :func:`rope_freqs` made."""
     angles = positions.to(torch.float32)[..., None] * freqs    # (B,S,hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -29,11 +29,13 @@ replay overwrites (the engine reads them first); ``lens`` is a new tensor
 every call; ``k``, ``v`` and ``tables`` are the caller's.
 
 What a replay calls no Python for, the runner does: it counts the kernel
-launches the wrappers counted at capture (``kernels/_launches.py``), and
-with the tracer on, stashes the MoE blocks' per-expert counts, which the
-captured step gathers into one (layers, experts) buffer, copied once a
-replay (``trace.py``).  Each call records a ``model.decode.graph`` span,
-attrs ``(mode, captures so far)``.
+launches the wrappers counted at capture (``kernels/_launches.py``; the
+glue sites of ``models/glue.py`` among them), and with the tracer on,
+stashes the MoE blocks' per-expert counts, which the captured step gathers
+into one (layers, experts) buffer, copied once a replay (``trace.py``).
+Each call records a ``model.decode.graph`` span, attrs ``(mode, captures
+so far)``, and a ``model.glue`` span, attrs ``(fused, torch)``: the glue
+sites of the step it ran (a replay: those of its capture).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ from repro_torch.kernels._launches import (
     launch_counts,
     launches_since,
 )
+from repro_torch.models import glue
 from repro_torch.models.attention import spare_pools
 from repro_torch.trace import TRACER
 
@@ -136,6 +139,7 @@ class DecodeGraphs:
     def __call__(self, params, cache: Dict[str, Any],
                  batch: Dict[str, torch.Tensor]):
         t0 = TRACER.now() if TRACER.on else 0
+        sites = glue.site_counts()
         key = self._key(params, cache, batch)
         graph = None if key is None else self.graphs.get(key)
         if graph is not None:
@@ -152,6 +156,7 @@ class DecodeGraphs:
                     self.graphs.popitem(last=False)
         if TRACER.on:
             TRACER.record("model.decode.graph", t0, (mode, self.captures))
+            glue.record_span(t0, sites)
         return out
 
     def _key(self, params, cache: Dict[str, Any],

@@ -63,11 +63,7 @@ from repro_torch.models.mamba2 import (
     mamba2_specs,
 )
 from repro_torch.models.mlp import init_mlp, mlp_specs
-from repro_torch.models.transformer import (
-    _attn_in,
-    _mlp_residual,
-    embed_tokens,
-)
+from repro_torch.models.transformer import attn_mlp_block, embed_tokens
 
 
 def _layout(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -160,10 +156,9 @@ def _group_fwd(group, shared, x: torch.Tensor, cfg: ModelConfig,
                positions: Optional[torch.Tensor]) -> torch.Tensor:
     for lp in group:
         x = _mamba_layer_fwd(lp, x, cfg)
-    h = x + attention_block(shared["attn"], _attn_in(shared, x, cfg), cfg,
-                            positions=positions, causal=True)
-    return logical_constraint(_mlp_residual(shared, h, cfg),
-                              "batch", "seq", None)
+    x = attn_mlp_block(shared, x, lambda xn: attention_block(
+        shared["attn"], xn, cfg, positions=positions, causal=True), cfg)
+    return logical_constraint(x, "batch", "seq", None)
 
 
 def hybrid_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -344,6 +339,13 @@ def hybrid_prefill(params: Dict[str, Any], cfg: ModelConfig, *,
     if n_groups:
         shared = params["shared"]
         convs, ssms, ks, vs = [], [], [], []
+
+        def attend(xn):
+            a, (kc, vc) = attention_prefill(shared["attn"], xn, cfg,
+                                            cache_len)
+            ks.append(kc)
+            vs.append(vc)
+            return a
         for group in params["groups"]:
             gc: List[torch.Tensor] = []
             gs: List[torch.Tensor] = []
@@ -351,13 +353,9 @@ def hybrid_prefill(params: Dict[str, Any], cfg: ModelConfig, *,
                 x, conv, ssm = mamba(lp, x)
                 gc.append(conv)
                 gs.append(ssm)
-            a, (kc, vc) = attention_prefill(
-                shared["attn"], _attn_in(shared, x, cfg), cfg, cache_len)
-            x = _mlp_residual(shared, x + a, cfg)
+            x = attn_mlp_block(shared, x, attend, cfg)
             convs.append(torch.stack(gc))
             ssms.append(torch.stack(gs))
-            ks.append(kc)
-            vs.append(vc)
         cache.update(conv=torch.stack(convs), ssm=torch.stack(ssms),
                      k=torch.stack(ks), v=torch.stack(vs))
     if tail:
@@ -425,8 +423,8 @@ def _decode_layers(params: Dict[str, Any], cache: Dict[str, Any],
     for gi, group in enumerate(params.get("groups", [])):
         for li, lp in enumerate(group):
             x = mamba(lp, x, cache["conv"][gi, li], cache["ssm"][gi, li])
-        x = x + attend(shared["attn"], _attn_in(shared, x, cfg), gi)
-        x = _mlp_residual(shared, x, cfg)
+        x = attn_mlp_block(shared, x,
+                           lambda xn: attend(shared["attn"], xn, gi), cfg)
     for ti, lp in enumerate(params.get("tail", [])):
         x = mamba(lp, x, cache["conv_tail"][ti], cache["ssm_tail"][ti])
     x = _norm(params["final_norm"], x, cfg)
@@ -473,13 +471,14 @@ def hybrid_decode_step_paged(params: Dict[str, Any], cache: Dict[str, Any],
     inactive rows never write a pool (where the step writes is computed
     once, for every application)."""
     lens, tables = cache["lens"], cache["tables"]
-    write = k_dst = v_dst = None
+    write = k_dst = v_dst = kv_lens = None
     if "k" in cache:
         write, k_dst, v_dst = paged_write(cache, active)
+        kv_lens = lens + 1
 
     def attend(ap, h, gi):
         return attention_decode_paged(ap, h, cache["k"][gi], cache["v"][gi],
-                                      lens, tables, write,
+                                      kv_lens, tables, write,
                                       (k_dst[gi], v_dst[gi]), cfg)[0]
     logits = _decode_layers(params, cache, tokens, cfg, attend)
     return logits, dict(cache, lens=lens + active.to(torch.int32))

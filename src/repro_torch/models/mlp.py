@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import glue
 from repro_torch.models.common import dense_init
 
 
@@ -48,7 +49,8 @@ def mlp_specs(cfg: ModelConfig, prefix: Tuple = ()) -> Dict[str, Tuple]:
 def mlp_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["gate"].to(x.dtype)) * (x @ p["up"].to(x.dtype))
+        h = glue.swiglu(x @ p["gate"].to(x.dtype),
+                        x @ p["up"].to(x.dtype), cfg)
         return h @ p["down"].to(x.dtype)
     h = F.gelu(x @ p["up"].to(x.dtype) + p["up_b"].to(x.dtype),
                approximate="tanh")

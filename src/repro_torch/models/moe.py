@@ -61,7 +61,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (
@@ -76,6 +75,7 @@ from repro_torch.distributed.sharding import (
     placements_for,
 )
 from repro_torch.kernels.moe_gmm import gmm
+from repro_torch.models import glue
 from repro_torch.models.common import dense_init
 from repro_torch.trace import TRACER
 
@@ -215,8 +215,8 @@ def _moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     buf = _assign(slot, xf[order // k], el * cap).view(el, cap, d)
 
     # ---- expert FFN (the moe_gmm contraction) ---------------------------
-    h = F.silu(gmm(buf, p["gate"].to(x.dtype))) \
-        * gmm(buf, p["up"].to(x.dtype))
+    h = glue.swiglu(gmm(buf, p["gate"].to(x.dtype)),
+                    gmm(buf, p["up"].to(x.dtype)), cfg)
     out_buf = gmm(h, p["down"].to(x.dtype)).view(el * cap, d)
 
     # ---- combine: each pair's row in (token, k) order, summed over k ---
@@ -224,8 +224,8 @@ def _moe_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     y = (vals * gates.reshape(-1, 1).to(x.dtype)).view(t, k, d).sum(dim=1)
 
     if cfg.n_shared_experts and experts[0] == 0:   # once in the sum
-        hs = F.silu(xf @ p["shared_gate"].to(x.dtype)) \
-            * (xf @ p["shared_up"].to(x.dtype))
+        hs = glue.swiglu(xf @ p["shared_gate"].to(x.dtype),
+                         xf @ p["shared_up"].to(x.dtype), cfg)
         y = y + hs @ p["shared_down"].to(x.dtype)
     return y.reshape(b, s, d), aux
 
@@ -379,8 +379,8 @@ def _moe_block_ep(p: Dict[str, torch.Tensor], x: torch.Tensor,
     y = y.redistribute(mesh, [Replicate() if pl.is_partial() else pl
                               for pl in xd.placements])
     if cfg.n_shared_experts:
-        hs = F.silu(xd @ p["shared_gate"].to(x.dtype)) \
-            * (xd @ p["shared_up"].to(x.dtype))
+        hs = glue.swiglu(xd @ p["shared_gate"].to(x.dtype),
+                         xd @ p["shared_up"].to(x.dtype), cfg)
         y = y + hs @ p["shared_down"].to(x.dtype)
     if not is_dtensor(x):
         return y.full_tensor(), aux.full_tensor()
@@ -426,8 +426,8 @@ def _ep_local(p: Dict[str, torch.Tensor], xb: torch.Tensor,
     rows2 = torch.where(keep2, exp_s * c_loc + slot2, e_loc * c_loc)
     ebuf = _assign(rows2, recv[order2], e_loc * c_loc).view(e_loc, c_loc, d)
 
-    h = F.silu(gmm(ebuf, p["gate"].to(xb.dtype))) \
-        * gmm(ebuf, p["up"].to(xb.dtype))
+    h = glue.swiglu(gmm(ebuf, p["gate"].to(xb.dtype)),
+                    gmm(ebuf, p["up"].to(xb.dtype)), cfg)
     obuf = gmm(h, p["down"].to(xb.dtype)).view(e_loc * c_loc, d)
 
     # ---- back to the home ranks, then each token's k rows by its gates

@@ -26,7 +26,8 @@ serving path, as the reference's has none.
   cache_len, n_blocks, block_size, device)`` / ``paged_cache_specs`` — the
   paged KV cache (a block pool shared by every slot); the LM families'
   ``decode_paged`` replays its step as a CUDA graph on one card
-  (``models/decode_graph.py``), and its ``eager`` is the step itself
+  (``models/decode_graph.py``), and its ``eager`` is the step itself;
+  each paged call records a ``model.glue`` span (``models/glue.py``)
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ENCDEC_DECODE_ENC_LEN, ShapeCell
 from repro_torch.device import torch_dtype
 from repro_torch.models import encdec as M_encdec
+from repro_torch.models import glue
 from repro_torch.models import hybrid as M_hybrid
 from repro_torch.models import transformer as M_lm
 from repro_torch.models.decode_graph import DecodeGraphs
@@ -195,7 +197,7 @@ def _lm_bundle(cfg: ModelConfig) -> ModelBundle:
         make_slot_cache=lambda b, s, device=None: M_lm.init_slot_cache(
             cfg, b, s, device=device),
         prefill_pads=True,
-        prefill_paged=prefill_paged,
+        prefill_paged=glue.recorded(prefill_paged),
         decode_paged=DecodeGraphs(decode_paged),
         make_paged_cache=make_paged_cache,
         paged_cache_specs=lambda: M_lm.paged_cache_specs(cfg),
@@ -256,8 +258,8 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
         make_slot_cache=lambda b, s, device=None:
             M_hybrid.init_hybrid_slot_cache(cfg, b, s, device=device),
         prefill_pads=False,
-        prefill_paged=prefill_paged,
-        decode_paged=decode_paged,
+        prefill_paged=glue.recorded(prefill_paged),
+        decode_paged=glue.recorded(decode_paged),
         make_paged_cache=make_paged_cache,
         paged_cache_specs=lambda: M_hybrid.hybrid_paged_cache_specs(cfg),
     )

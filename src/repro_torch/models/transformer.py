@@ -24,7 +24,7 @@ S); it has no slotted or paged prefill, whose prompts are token ids.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,13 +48,13 @@ from repro_torch.models.attention import (
     paged_write,
 )
 from repro_torch.models.common import (
-    apply_norm,
     cast_tree,
     embed_init,
     init_norm,
     norm_specs,
     remat_call,
 )
+from repro_torch.models.glue import add_norm
 from repro_torch.models.mlp import init_mlp, mlp_block, mlp_specs
 from repro_torch.models.moe import init_moe, moe_block, moe_specs
 
@@ -155,25 +155,52 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _ffn_residual(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``h`` plus the layer's feed-forward (dense MLP or MoE) of the normed
-    ``h``, and the MoE load-balance loss (None for a dense layer)."""
-    hn = apply_norm(cfg.norm, h, lp["mlp_norm"], cfg.norm_eps)
+def _ffn(lp: Dict[str, Any], hn: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward (dense MLP or MoE) of the normed ``hn``,
+    and the MoE load-balance loss (None for a dense layer)."""
     if cfg.family == "moe":
-        y, aux = moe_block(lp["moe"], hn, cfg)
-        return h + y, aux
-    return h + mlp_block(lp["mlp"], hn, cfg), None
+        return moe_block(lp["moe"], hn, cfg)
+    return mlp_block(lp["mlp"], hn, cfg), None
 
 
-def _mlp_residual(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig
-                  ) -> torch.Tensor:
-    return _ffn_residual(lp, h, cfg)[0]
+def _boundary(x: torch.Tensor, y: Optional[torch.Tensor], p, cfg: ModelConfig,
+              **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Between two layers: the first's output, its residual ``x`` plus its
+    feed-forward output ``y`` (``x`` where None), and that normed by ``p``,
+    the next layer's ``attn_norm`` or the final norm (:func:`add_norm`,
+    ``kw`` its options).  A function of its own so that a caller can
+    watch the residual stream layer by layer (``chip_smoke.py``'s drift
+    check wraps it)."""
+    return add_norm(x, y, p, cfg, **kw)
 
 
-def _attn_in(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
-             ) -> torch.Tensor:
-    return apply_norm(cfg.norm, x, lp["attn_norm"], cfg.norm_eps)
+def _layer_stack(params, cfg: ModelConfig, x: torch.Tensor,
+                 attend: Callable, constrain: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Every layer over the residual stream ``x``; ``attend(i, lp, xn)``
+    is layer ``i``'s attention of its normed input.  Each residual add is
+    made at the norm after it (:func:`add_norm`, one launch with it where
+    the glue runs fused), so this returns the last layer's residual and
+    feed-forward output, whose sum is the stream: :func:`_boundary` with
+    the final norm ends it.  ``constrain`` places the stream as the rules
+    say at each layer's input."""
+    y = None
+    for i, lp in enumerate(params["layers"]):
+        x, xn = _boundary(x, y, lp["attn_norm"], cfg, constrain=constrain)
+        x, hn = add_norm(x, attend(i, lp, xn), lp["mlp_norm"], cfg)
+        y = _ffn(lp, hn, cfg)[0]
+    return x, y
+
+
+def attn_mlp_block(lp: Dict[str, Any], x: torch.Tensor, attend: Callable,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """One layer alone (the hybrid's shared block): ``x`` plus its
+    attention ``attend(xn)`` of the normed ``x``, plus its feed-forward
+    of that, normed."""
+    _, xn = add_norm(x, None, lp["attn_norm"], cfg)
+    h, hn = add_norm(x, attend(xn), lp["mlp_norm"], cfg)
+    return h + _ffn(lp, hn, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -277,11 +304,12 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _layer_fwd(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                positions: Optional[torch.Tensor]
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    h = x + attention_block(lp["attn"], _attn_in(lp, x, cfg), cfg,
-                            positions=positions, causal=True)
-    h = logical_constraint(h, "batch", "seq", None)
-    out, aux = _ffn_residual(lp, h, cfg)
-    return logical_constraint(out, "batch", "seq", None), aux
+    _, xn = add_norm(x, None, lp["attn_norm"], cfg)
+    a = attention_block(lp["attn"], xn, cfg, positions=positions,
+                        causal=True)
+    h, hn = add_norm(x, a, lp["mlp_norm"], cfg, constrain=True)
+    y, aux = _ffn(lp, hn, cfg)
+    return logical_constraint(h + y, "batch", "seq", None), aux
 
 
 def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -303,8 +331,7 @@ def lm_hidden(params: Dict[str, Any], cfg: ModelConfig, *,
         x, aux_l = remat_call(cfg.remat, _layer_fwd, lp, x, cfg, positions)
         if aux_l is not None:
             aux = aux + aux_l
-    x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
-    return x, aux
+    return add_norm(x, None, params["final_norm"], cfg)[1], aux
 
 
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -341,17 +368,19 @@ def cache_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _prefill_layers(params, cfg: ModelConfig, x: torch.Tensor,
                     cache_len: int, positions: Optional[torch.Tensor]):
+    """(h, y, k, v): the stream's last residual and feed-forward output
+    (:func:`_layer_stack`) and every layer's K/V caches, stacked."""
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    x = logical_constraint(x, "batch", "seq", None)
-    for lp in params["layers"]:
-        a, (kc, vc) = attention_prefill(lp["attn"], _attn_in(lp, x, cfg),
-                                        cfg, cache_len, positions=positions)
-        x = logical_constraint(_mlp_residual(lp, x + a, cfg),
-                               "batch", "seq", None)
+
+    def attend(i, lp, xn):
+        a, (kc, vc) = attention_prefill(lp["attn"], xn, cfg, cache_len,
+                                        positions=positions)
         ks.append(kc)
         vs.append(vc)
-    return x, torch.stack(ks), torch.stack(vs)
+        return a
+    h, y = _layer_stack(params, cfg, x, attend, constrain=True)
+    return h, y, torch.stack(ks), torch.stack(vs)
 
 
 def lm_prefill(params: Dict[str, Any], cfg: ModelConfig, *,
@@ -366,8 +395,10 @@ def lm_prefill(params: Dict[str, Any], cfg: ModelConfig, *,
     check_family(cfg)
     x = _inputs(params, cfg, tokens, embeds)
     s = x.shape[1]
-    x, k_all, v_all = _prefill_layers(params, cfg, x, cache_len, positions)
-    x = apply_norm(cfg.norm, x[:, -1:], params["final_norm"], cfg.norm_eps)
+    h, y, k_all, v_all = _prefill_layers(params, cfg, x, cache_len,
+                                         positions)
+    x = _boundary(h, y, params["final_norm"], cfg, constrain=True,
+                  pick=lambda t: t[:, -1:])[1]
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": k_all, "v": v_all, "len": s}
 
@@ -400,10 +431,11 @@ def lm_prefill_slotted(params: Dict[str, Any], cfg: ModelConfig, *,
     check_family(cfg)
     check_token_prompts(cfg)
     x = embed_tokens(params, tokens, cfg)
-    x, k_all, v_all = _prefill_layers(params, cfg, x, cache_len, None)
-    rows = torch.arange(x.shape[0], device=x.device)
-    last = x[rows, lens.long() - 1][:, None]                   # (B, 1, D)
-    last = apply_norm(cfg.norm, last, params["final_norm"], cfg.norm_eps)
+    h, y, k_all, v_all = _prefill_layers(params, cfg, x, cache_len, None)
+    rows = torch.arange(h.shape[0], device=h.device)
+    at = lens.long() - 1
+    last = _boundary(h, y, params["final_norm"], cfg, constrain=True,
+                     pick=lambda t: t[rows, at][:, None])[1]  # (B, 1, D)
     logits = unembed(params, last, cfg)[:, 0]
     return logits, {"k": k_all, "v": v_all, "lens": lens.to(torch.int32)}
 
@@ -422,12 +454,12 @@ def lm_decode_step_slotted(params: Dict[str, Any], cache: Dict[str, Any],
     check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
     lens = cache["lens"]
-    for i, lp in enumerate(params["layers"]):
-        a, _, _ = attention_decode_slotted(
-            lp["attn"], _attn_in(lp, x, cfg), cache["k"][i], cache["v"][i],
-            lens, cfg)
-        x = _mlp_residual(lp, x + a, cfg)
-    x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
+
+    def attend(i, lp, xn):
+        return attention_decode_slotted(lp["attn"], xn, cache["k"][i],
+                                        cache["v"][i], lens, cfg)[0]
+    h, y = _layer_stack(params, cfg, x, attend)
+    x = _boundary(h, y, params["final_norm"], cfg)[1]
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"],
                     "lens": lens + active.to(torch.int32)}
@@ -498,12 +530,14 @@ def lm_decode_step_paged(params: Dict[str, Any], cache: Dict[str, Any],
     x = embed_tokens(params, tokens, cfg)
     lens, tables = cache["lens"], cache["tables"]
     write, k_dst, v_dst = paged_write(cache, active)
-    for i, lp in enumerate(params["layers"]):
-        a, _, _ = attention_decode_paged(
-            lp["attn"], _attn_in(lp, x, cfg), cache["k"][i], cache["v"][i],
-            lens, tables, write, (k_dst[i], v_dst[i]), cfg)
-        x = _mlp_residual(lp, x + a, cfg)
-    x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
+    kv_lens = lens + 1
+
+    def attend(i, lp, xn):
+        return attention_decode_paged(lp["attn"], xn, cache["k"][i],
+                                      cache["v"][i], kv_lens, tables,
+                                      write, (k_dst[i], v_dst[i]), cfg)[0]
+    h, y = _layer_stack(params, cfg, x, attend)
+    x = _boundary(h, y, params["final_norm"], cfg)[1]
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "tables": tables,
                     "lens": lens + active.to(torch.int32)}
@@ -520,10 +554,11 @@ def lm_decode_step(params: Dict[str, Any], cache: Dict[str, Any],
     check_family(cfg)
     x = _inputs(params, cfg, tokens, embeds)
     pos = cache["len"]
-    for i, lp in enumerate(params["layers"]):
-        a, _, _ = attention_decode(lp["attn"], _attn_in(lp, x, cfg),
-                                   cache["k"][i], cache["v"][i], pos, cfg)
-        x = _mlp_residual(lp, x + a, cfg)
-    x = apply_norm(cfg.norm, x, params["final_norm"], cfg.norm_eps)
+
+    def attend(i, lp, xn):
+        return attention_decode(lp["attn"], xn, cache["k"][i], cache["v"][i],
+                                pos, cfg)[0]
+    h, y = _layer_stack(params, cfg, x, attend)
+    x = _boundary(h, y, params["final_norm"], cfg)[1]
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "len": pos + 1}

@@ -54,6 +54,12 @@ The engine records (``serve/engine.py``):
     the call makes keep ``serve.step.enqueue`` as their parent); attrs
     ``(mode, captures so far)``, mode ``replay``, ``capture`` (the eager
     step, then its capture) or ``eager``.
+``model.glue``
+    one per call of an LM bundle's ``prefill_paged`` (under
+    ``serve.prefill.enqueue``) and ``decode_paged`` (beside
+    ``model.decode.graph``), recorded as it returns; attrs ``(fused,
+    torch)``, the glue sites of the call that ran the fused kernels and
+    PyTorch's ops (``models/glue.py``; a replay counts its capture's).
 ``request.*``
     ``submit``, ``admit``, ``first_token`` and ``done``, events with the
     request's rid: ``admit`` at the start of its prefill bucket,

@@ -30,7 +30,13 @@ repository root on the GPU machine:
    * the experts a decode step's MoE call reaches, and its drops;
    * the bundle's decode calls by how they ran (``model.decode.graph``:
      ``replay``, ``capture`` or ``eager``), in the run and in the window;
-   * records made a decode tick, and the outcomes of ``request.done``.
+   * records made a decode tick, and the outcomes of ``request.done``;
+   * the device's work under each ``engine.step`` and ``model.prefill``
+     span of the traced part: kernels a call, and device ms a call by
+     kind (cuBLAS's and the gmm's products, attention, the fused glue
+     kernels, PyTorch's own kernels, copies), beside the span's host
+     wall; a decode step's kernels by name; and the glue sites of the
+     window's ``model.glue`` spans.
 
 ``--dump PATH`` writes the traced part's sync spans and DtoH copies, on
 the profiler's clock, as JSON.
@@ -286,6 +292,53 @@ def host_readings(np, snap, a: int, b: int, rec, L) -> dict:
     return out
 
 
+# kinds of device op, by a piece of the name (the first that matches)
+KINDS = (("copies", ("Memcpy", "Memset")),
+         ("products", ("nvjet", "cublas", "gmm_", "gemm")),
+         ("attention", ("attention",)),
+         ("glue", ("glue_",)),
+         ("torch", ("at::native", "at_native")))
+
+
+def device_readings(statistics, ctx, dtrace, PT) -> dict:
+    """Per ``engine.step`` and ``model.prefill`` span of the traced part
+    (``portbench``'s spans): the device ops that started inside it, their
+    count less copies (kernels a call) and their device ms by kind
+    (:data:`KINDS`, "other" the rest), medians and means over the calls,
+    beside the span's host wall; and the kernels of the median decode
+    step by name."""
+    out = {}
+    for name in ("engine.step", "model.prefill"):
+        spans = [s for s in ctx.spans.by_name.get(name, [])
+                 if s.t0 + ctx.spans.to_epoch >= dtrace.t0
+                 and s.t1 + ctx.spans.to_epoch <= dtrace.t1]
+        groups = PT.in_spans(dtrace.ops, spans, ctx.spans.to_epoch)
+        if not groups:
+            continue
+        kernels, by = [], {}
+        for g in groups:
+            kernels.append(sum(not op.startswith(("Memcpy", "Memset"))
+                               for op, _, _ in g))
+            for op, t0, t1 in g:
+                kind = next((k for k, keys in KINDS
+                             if any(key in op for key in keys)), "other")
+                by[kind] = by.get(kind, 0) + (t1 - t0) / 1e6
+        out[name] = {
+            "calls": len(groups),
+            "kernels_median": statistics.median(kernels),
+            "kernels_max": max(kernels),
+            "host_ms_mean": statistics.mean(s.ms for s in spans),
+            "device_ms_mean": {k: v / len(groups) for k, v in by.items()}}
+        if name == "engine.step":
+            mid = sorted(groups, key=len)[len(groups) // 2]
+            names = {}
+            for op, _, _ in mid:
+                names[op[:60]] = names.get(op[:60], 0) + 1
+            out["step_kernels_by_name"] = sorted(names.items(),
+                                                 key=lambda kv: -kv[1])
+    return out
+
+
 def moe_readings(np, T, snap, a: int, b: int) -> dict:
     """Experts reached and pairs dropped by the decode steps' and the
     prefills' MoE calls in ``[a, b]``."""
@@ -382,6 +435,13 @@ def main(argv=None) -> int:
     report["moe"] = moe_readings(np, T, snap, a, int(ctx.rec.t_close * 1e9))
     for k, v in report["moe"].items():
         log(f"[moe] {k} {json.dumps(v)}")
+    report["device"] = device_readings(statistics, ctx, dtrace, PT)
+    glue = snap.between("model.glue", a, int(ctx.rec.t_close * 1e9))
+    report["device"]["glue_sites_in_window"] = [
+        sum(s.attrs[0] for s in glue), sum(s.attrs[1] for s in glue),
+        len(glue)]
+    for k, v in report["device"].items():
+        log(f"[device] {k} {json.dumps(v)}")
     rec = report["host"]["records_per_decode_tick"]
     c = report["cost"]
     report["cost"]["per_decode_tick_us_from_counts"] = (
